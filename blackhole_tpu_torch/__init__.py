@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port of blackhole_tpu: the forward render path.
+"""PyTorch/CUDA port of blackhole_tpu: the forward render and its
+forward-mode gradients.
 
-Module paths and public names follow blackhole_tpu.  The geodesic loop
-runs in a hand-written CUDA kernel (csrc/) for tensors on a GPU and in
-its plain PyTorch version (render.trace_kernel) for tensors on the CPU.
-This package never imports jax.
+Module paths and public names follow blackhole_tpu.  The geodesic loops
+run in hand-written CUDA kernels (csrc/) for tensors on a GPU and in
+their plain PyTorch versions (render.trace_kernel) for tensors on the
+CPU.  This package never imports jax.
 """

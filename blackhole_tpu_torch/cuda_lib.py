@@ -1,11 +1,15 @@
-"""Build and load the CUDA geodesic kernel (csrc/) on first use.
+"""Build and load the CUDA geodesic kernels (csrc/) on first use.
 
-nvcc compiles csrc/trace_kernel.cu into a shared library with a plain C
+nvcc compiles each kernel source into a shared library with a plain C
 interface under build/blackhole_tpu_torch/ at the root of the checkout,
-named by a hash of the sources and flags, so an unchanged tree builds
-once.  The library is loaded with ctypes; every pointer and the stream
-pass as c_void_p.  Only render.trace_kernel.trace_planes imports this
-module, and only for a CUDA tensor, so the CPU path never needs nvcc.
+named by a hash of all the sources and the flags, so an unchanged tree
+builds once.  build() starts one nvcc per library, all at once.  The
+libraries are loaded with ctypes; every pointer and the stream pass as
+c_void_p.  Only render.trace_kernel's wrappers import this module, and
+only for a CUDA tensor, so the CPU path never needs nvcc.
+
+  trace:   csrc/trace_kernel.cu  (K1, bh_trace_planes)
+  fwdgrad: csrc/trace_fwdgrad.cu (K2, bh_trace_planes_fwdgrad)
 """
 
 from __future__ import annotations
@@ -20,7 +24,10 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "trace_kernel.cu", CSRC / "geodesic_step.cuh")
+LIBRARIES = {"trace": CSRC / "trace_kernel.cu",
+             "fwdgrad": CSRC / "trace_fwdgrad.cu"}
+SOURCES = (*LIBRARIES.values(), CSRC / "geodesic_step.cuh",
+           CSRC / "dual.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "blackhole_tpu_torch"
 # No --use_fast_math: sqrtf, division, logf and expf stay IEEE-accurate.
@@ -39,55 +46,82 @@ def nvcc_path() -> str:
     candidate = Path(home) / "bin" / "nvcc"
     if candidate.exists():
         return str(candidate)
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile the kernel library if its hash-named file is missing.
-
-    Returns its path; the compiler's output (ptxas register and spill
-    report included) is kept beside it as <name>.log."""
+def library_path(name: str) -> Path:
+    """Where the library `name` of this checkout's sources lives."""
     digest = hashlib.sha256()
     for src in SOURCES:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"libbh_trace_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
+    return BUILD_DIR / f"libbh_{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> dict[str, Path]:
+    """Compile every kernel library whose hash-named file is missing,
+    one nvcc each, all started together.
+
+    Returns {name: path}; each compiler's output (ptxas register and
+    spill report included) is kept beside its library as <name>.log."""
+    paths = {name: library_path(name) for name in LIBRARIES}
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[0])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    lib.with_suffix(".log").write_text(log)
-    os.replace(tmp, lib)  # atomic: a concurrent process never sees half a file
-    return lib
+    nvcc = nvcc_path()
+    jobs = {}
+    for name, lib in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(LIBRARIES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {name} ({proc.returncode}):\n{log}")
+            continue
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)  # atomic: a concurrent process never sees half
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """The kernel library of this checkout, built on first call, with
-    its C interface declared."""
-    lib = ctypes.CDLL(str(build()))
-    lib.bh_trace_planes.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.bh_trace_planes.restype = ctypes.c_int
-    lib.bh_error_string.argtypes = [ctypes.c_int]
-    lib.bh_error_string.restype = ctypes.c_char_p
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library `name` of this checkout, built on first call,
+    with its C interface declared."""
+    lib = ctypes.CDLL(str(build()[name]))
+    if name == "trace":
+        lib.bh_trace_planes.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _P]
+        lib.bh_trace_planes.restype = _I
+        lib.bh_error_string.argtypes = [_I]
+        lib.bh_error_string.restype = ctypes.c_char_p
+    else:
+        lib.bh_trace_planes_fwdgrad.argtypes = [
+            _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P,
+        ]
+        lib.bh_trace_planes_fwdgrad.restype = _I
+        lib.bh_fwdgrad_error_string.argtypes = [_I]
+        lib.bh_fwdgrad_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def trace_planes(scal, inp, out, n: int, max_steps: int, disk_on: bool,
                  adaptive: bool, stream: int) -> None:
-    """Launch the kernel on `stream` (checked tensors, see
+    """Launch K1 on `stream` (checked tensors, see
     render.trace_kernel.trace_planes); raise if the launch fails."""
-    lib = load()
+    lib = load("trace")
     rc = lib.bh_trace_planes(
         scal.data_ptr(), inp.data_ptr(), out.data_ptr(), n, int(max_steps),
         int(disk_on), int(adaptive), stream,
@@ -95,3 +129,20 @@ def trace_planes(scal, inp, out, n: int, max_steps: int, disk_on: bool,
     if rc != 0:
         msg = lib.bh_error_string(rc).decode()
         raise RuntimeError(f"geodesic kernel launch failed: {msg} ({rc})")
+
+
+def trace_planes_fwdgrad(scal, dscal, inp, dinp, out, n: int, n_tan: int,
+                         max_steps: int, disk_on: bool, adaptive: bool,
+                         stream: int) -> None:
+    """Launch K2 with n_tan (1 or 2) tangents on `stream` (checked
+    contiguous tensors, see render.trace_kernel.trace_planes_fwdgrad);
+    raise if the launch fails."""
+    lib = load("fwdgrad")
+    rc = lib.bh_trace_planes_fwdgrad(
+        scal.data_ptr(), dscal.data_ptr(), inp.data_ptr(), dinp.data_ptr(),
+        out.data_ptr(), n, int(n_tan), int(max_steps), int(disk_on),
+        int(adaptive), stream,
+    )
+    if rc != 0:
+        msg = lib.bh_fwdgrad_error_string(rc).decode()
+        raise RuntimeError(f"multi-tangent kernel launch failed: {msg} ({rc})")

@@ -6,9 +6,19 @@ device, static fields (the ones the JAX package marks
 pytree_node=False) are plain Python values.  Derived quantities
 (a, r_plus) are computed from the primaries, as in the JAX package.
 
+Records are made on the card unless the caller asks for another device
+(device="cpu" for a CPU run); without a GPU a record made without a
+device raises, through torch's own error, instead of quietly landing
+on the CPU.
+
 scene_from_reference / camera_from_reference carry a scene from any
 object with the JAX dataclasses' attribute names into this package,
 reading each leaf through numpy (so they never import jax).
+
+The records are registered as pytrees (torch.utils._pytree): their
+tensor fields are the leaves, their static fields the context.  So a
+Scene is a valid primal of torch.func.jvp, and a Scene whose leaves
+are tangents is its tangent, as a JAX Scene is under jax.jvp.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 Tensor = torch.Tensor
 
@@ -65,7 +76,7 @@ class BlackHole:
     charge: Tensor
 
     @classmethod
-    def create(cls, mass=1.0, spin=0.0, charge=0.0, device="cpu",
+    def create(cls, mass=1.0, spin=0.0, charge=0.0, device="cuda",
                dtype=torch.float32):
         return cls(_scalar(mass, device, dtype), _scalar(spin, device, dtype),
                    _scalar(charge, device, dtype))
@@ -99,7 +110,7 @@ class Disk:
     def create(cls, inner_radius=6.0, outer_radius=20.0,
                temperature_scale=1.0, density_scale=1.0,
                thickness_factor=0.05, alpha_viscosity=0.1, inclination=0.0,
-               device="cpu", dtype=torch.float32):
+               device="cuda", dtype=torch.float32):
         vals = (inner_radius, outer_radius, temperature_scale, density_scale,
                 thickness_factor, alpha_viscosity, inclination)
         return cls(*(_scalar(v, device, dtype) for v in vals))
@@ -116,7 +127,7 @@ class Camera:
 
     @classmethod
     def create(cls, position=(0.0, 0.0, 75.0), direction=(0.0, 0.0, -1.0),
-               up=(0.0, 1.0, 0.0), fov_deg=40.0, device="cpu",
+               up=(0.0, 1.0, 0.0), fov_deg=40.0, device="cuda",
                dtype=torch.float32):
         return cls(_scalar(position, device, dtype),
                    _scalar(direction, device, dtype),
@@ -161,7 +172,7 @@ class SimConfig:
                max_steps=1000, integrator=Integrator.RK4,
                enable_doppler=True, enable_redshift=True,
                enable_beaming=True, show_disk=True, shadow_softness=0.0,
-               disk_kinematics="auto", device="cpu", dtype=torch.float32):
+               disk_kinematics="auto", device="cuda", dtype=torch.float32):
         return cls(
             time_step=_scalar(time_step, device, dtype),
             max_ray_distance=_scalar(max_ray_distance, device, dtype),
@@ -224,12 +235,12 @@ def _record(cls, ref, device):
                  for f in dataclasses.fields(cls)))
 
 
-def camera_from_reference(camera_like, device="cpu") -> Camera:
+def camera_from_reference(camera_like, device="cuda") -> Camera:
     """Camera from any object with Camera's attribute names."""
     return _record(Camera, camera_like, device)
 
 
-def scene_from_reference(scene_like, device="cpu") -> Scene:
+def scene_from_reference(scene_like, device="cuda") -> Scene:
     """Scene from any object with the JAX Scene's attribute names
     (blackhole, disk, config, disk_enabled, env_map)."""
     cfg = scene_like.config
@@ -254,3 +265,40 @@ def scene_from_reference(scene_like, device="cpu") -> Scene:
         disk_enabled=bool(scene_like.disk_enabled),
         env_map=None if env is None else _leaf(env, device),
     )
+
+
+# --- pytree registration -------------------------------------------------
+
+
+def _register(cls, static=()):
+    """Register a frozen dataclass: fields named in `static` go to the
+    context, every other field is a child (a field that is None, such as
+    a Scene without env_map, is left out of the children and marked in
+    the context: torch.func.jvp takes tensors only)."""
+    names = [f.name for f in dataclasses.fields(cls)]
+    children = [n for n in names if n not in static]
+
+    def flatten(obj):
+        present = tuple(getattr(obj, n) is not None for n in children)
+        values = [getattr(obj, n) for n, p in zip(children, present) if p]
+        return values, (present,) + tuple(getattr(obj, n) for n in static)
+
+    def unflatten(values, context):
+        present, statics = context[0], context[1:]
+        it = iter(values)
+        kids = {n: next(it) if p else None for n, p in zip(children, present)}
+        return cls(**kids, **dict(zip(static, statics)))
+
+    pytree.register_pytree_node(
+        cls, flatten, unflatten,
+        serialized_type_name=f"blackhole_tpu_torch.geom.types.{cls.__name__}",
+    )
+
+
+for _cls in (BlackHole, Disk, Camera, Hit):
+    _register(_cls)
+_register(SimConfig, static=(
+    "max_steps", "integrator", "enable_doppler", "enable_redshift",
+    "enable_beaming", "show_disk", "shadow_softness", "disk_kinematics",
+))
+_register(Scene, static=("disk_enabled",))

@@ -1,12 +1,19 @@
 """Geodesic kernel path: prepare -> integrate -> postprocess.
 
 PyTorch counterpart of blackhole_tpu.render.pallas_kernel (forward
-only).  The loop that integrates every ray to its end is the Pallas
-kernel `_make_kernel` on the TPU; here it is the hand-written CUDA
-kernel in csrc/trace_kernel.cu for tensors on a GPU, and its plain
-PyTorch version (step_update, trace_planes_plain) for tensors on the
-CPU.  trace_planes picks between them by the tensors' device alone: a
-CUDA tensor launches the kernel or raises.
+mode).  The loop that integrates every ray to its end is a Pallas
+kernel on the TPU; here it is a hand-written CUDA kernel for tensors on
+a GPU, and its plain PyTorch version for tensors on the CPU.  The
+wrappers pick between them by the tensors' device alone: a CUDA tensor
+launches the kernel or raises.
+
+  trace_planes (K1, csrc/trace_kernel.cu; plain: trace_planes_plain)
+    replaces _make_kernel: the primal integration.
+  trace_planes_fwdgrad (K2, csrc/trace_fwdgrad.cu; plain:
+    trace_planes_fwdgrad_plain) replaces _make_kernel_jvp_multi: one
+    primal and n forward tangents sharing it.  With n = 1 it replaces
+    _make_kernel_jvp (K3), reached through torch.func.jvp of the planes
+    pass (_Planes), as jax.jvp of trace_rays_pallas reaches K3.
 
 Layouts (structure of arrays, one column per ray):
   inp (16, n): BL state (r, th, ph, p_r, p_th), conserved L, cartesian
@@ -16,17 +23,25 @@ Layouts (structure of arrays, one column per ray):
   out (15, n): result, dist, steps, hit xyz, last-dir xyz, final r,
     sin/cos th, sin/cos ph, min_r.
 
-Forward only: a tensor that requires grad raises NotImplementedError at
-trace_planes, so no gradient can come back silently as zero.
+Tangent layouts: dscals (n_tan, 12) and dinps (n_tan, 16, n) carry one
+tangent direction per row (dL rides in plane 5 of dinp); the tangent
+planes come back as douts (n_tan, 15, n).
+
+Forward mode only: reverse mode through the planes pass raises
+NotImplementedError (at trace_planes when called directly with a tensor
+that requires grad, at .backward() through trace_rays_kernel), so no
+gradient can come back silently as zero.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import jvp
 
 from blackhole_tpu_torch.constants import EPSILON, HORIZON_CAPTURE_FACTOR
 from blackhole_tpu_torch.geom import coords
 from blackhole_tpu_torch.geom.types import Hit, Integrator, RayResult, Scene
+from blackhole_tpu_torch.integrate import sensitivity
 from blackhole_tpu_torch.integrate import steppers as sp_mod
 from blackhole_tpu_torch.metrics import derived
 from blackhole_tpu_torch.render import geodesic, trace
@@ -41,17 +56,129 @@ N_OUT_PLANES = 15
  S_LX, S_LY, S_LZ, S_T, S_H, S_MINR) = range(21)
 N_STATE = 21
 
-# Kernel launches since the last reset; trace_planes adds one per launch.
+# Kernel launches since the last reset: trace_planes adds one per K1
+# launch, trace_planes_fwdgrad one per K2 launch.
 launches = 0
+fwdgrad_launches = 0
+
+# Tangent directions one K2 launch carries (the kernel is instantiated
+# for 1 and 2); more tangents take several passes, each recomputing the
+# same primal.
+MAX_TANGENTS_PER_PASS = 2
 
 _ACTIVE = float(trace.ACTIVE)
+
+
+# --- max, min, clip and abs with the JAX package's tangent rules ---------
+#
+# The step's primal is the same with torch.clamp/maximum/abs, but their
+# forward-mode derivatives differ from jax.jvp's where the JAX package
+# relies on them: jnp.maximum/minimum give 0.5 (da + db) at a tie and a
+# zero tangent where the result is NaN (torch: db + w (da - db), which
+# rounds and keeps db at NaN), jnp.clip is minimum(hi, maximum(lo, x))
+# (torch.clamp passes the whole tangent at a bound), and jnp.abs has
+# tangent +dx at 0 (torch.abs: 0).  A bound given as a Python float is
+# a constant without tangent.
+
+
+class _MaxMin(torch.autograd.Function):
+    @staticmethod
+    def forward(a, b, is_max):
+        if isinstance(b, torch.Tensor):
+            return torch.maximum(a, b) if is_max else torch.minimum(a, b)
+        return torch.clamp(a, min=b) if is_max else torch.clamp(a, max=b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, _ = inputs
+        ctx.b = None if isinstance(b, torch.Tensor) else b
+        if ctx.b is None:
+            ctx.save_for_forward(a, output, b)
+        else:
+            ctx.save_for_forward(a, output)
+
+    @staticmethod
+    def jvp(ctx, da, db, _):
+        a, r, *rest = ctx.saved_tensors
+        b = rest[0] if rest else ctx.b
+        ea, eb = a == r, b == r
+        out = None
+        if da is not None:
+            out = da * torch.where(ea, torch.where(eb, 0.5, 1.0), 0.0)
+        if db is not None:
+            t = db * torch.where(eb, torch.where(ea, 0.5, 1.0), 0.0)
+            out = t if out is None else out + t
+        return out
+
+
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(x):
+        return torch.abs(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def jvp(ctx, dx):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0.0, dx, -dx)
+
+
+def _max(a, b):
+    """jnp.maximum: NaN wins; tangent rule as in jax.jvp."""
+    return _MaxMin.apply(a, b, True)
+
+
+def _min(a, b):
+    """jnp.minimum: NaN wins; tangent rule as in jax.jvp."""
+    return _MaxMin.apply(a, b, False)
+
+
+def _clip(x, lo, hi):
+    """jnp.clip: minimum(hi, maximum(lo, x))."""
+    return _min(_max(x, lo), hi)
+
+
+def _abs(x):
+    """jnp.abs: tangent +dx at 0."""
+    return _Abs.apply(x)
+
+
+class _SlaveTrig(torch.autograd.Function):
+    """Identity on (st, ct, sp, cp); under torch.func.jvp their tangents
+    are overwritten with cos th dth, -sin th dth, cos ph dph, -sin ph dph
+    (the JAX package's _slave_trig)."""
+
+    @staticmethod
+    def forward(st, ct, sp, cp, th, ph):
+        # Views, not the inputs themselves: autograd refuses to save an
+        # input returned as-is.
+        return st.view_as(st), ct.view_as(ct), sp.view_as(sp), cp.view_as(cp)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs[:4])
+
+    @staticmethod
+    def jvp(ctx, _dst, _dct, _dsp, _dcp, dth, dph):
+        st, ct, sp, cp = ctx.saved_tensors
+        dth = torch.zeros_like(st) if dth is None else dth
+        dph = torch.zeros_like(sp) if dph is None else dph
+        return ct * dth, -st * dth, cp * dph, -sp * dph
+
+
+def slave_trig(st, ct, sp, cp, th, ph):
+    """Trig-tangent slaving: identity on the primal (see _SlaveTrig)."""
+    return _SlaveTrig.apply(st, ct, sp, cp, th, ph)
 
 
 def _rhs(r, pr, pth, st, ct, sp, cp, L, M, a, Q):
     """Closed-form Kerr-Newman geodesic RHS on the trig-augmented state
     (E = 1), transcendental-free.  Returns
     (dr, dth, dph, dpr, dpth, dt, dst, dct, dsp, dcp)."""
-    st2 = torch.clamp(st * st, min=EPSILON)
+    st2 = _max(st * st, EPSILON)
     a2 = a * a
     sigma = r * r + a2 * ct * ct
     delta = r * r - 2.0 * M * r + a2 + Q * Q
@@ -136,10 +263,15 @@ def _advance(c, *terms):
     return tuple(out)
 
 
-def step_update(state, scal, disk_enabled: bool, adaptive: bool = False):
+def step_update(state, scal, disk_enabled: bool, adaptive: bool = False,
+                slave: bool = False):
     """One masked integration step on tuples of (n,) tensors — the plain
     version of csrc/geodesic_step.cuh's step_update, mirroring the JAX
-    package's pallas_kernel._step_update (forward, no tracking).
+    package's pallas_kernel._step_update (no tracking).  Its max, min,
+    clip and abs follow jax.jvp's tangent rules, so torch.func.jvp of it
+    is the tangent recurrence of K2; slave=True slaves the trig tangents
+    (slave_trig) after the renormalisation, as the JAX package's
+    differentiated kernels do.
 
     state: the 21 S_* slots; scal: (M, a, Q, dt, max_dist, r_capture,
     disk_inner, disk_outer, sin_incl, cos_incl, tol, r_shell_min, L),
@@ -157,9 +289,9 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False):
     if adaptive:
         h = h_carry
     else:
-        h = dt * torch.clamp(r / (7.5 * rs), 0.05, 20.0)
-        h = torch.minimum(h, 0.5 * (r - r_capture) + 1e-3 * dt)
-        h = torch.maximum(h, 1e-4 * dt)
+        h = dt * _clip(r / (7.5 * rs), 0.05, 20.0)
+        h = _min(h, 0.5 * (r - r_capture) + 1e-3 * dt)
+        h = _max(h, 1e-4 * dt)
 
     cur = (r, th, ph, pr, pth, tt, sth, cth, sph, cph)
 
@@ -199,23 +331,20 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False):
         # max(|y|, |y5|) floored at 1e-12.
         err = None
         for c in range(trace.N_ERR_COMPONENTS):
-            scale = torch.clamp(
-                torch.maximum(torch.abs(cur[c]), torch.abs(new[c])),
-                min=1e-12,
-            )
-            e = torch.abs(new[c] - y4[c]) / scale
-            err = e if err is None else torch.maximum(err, e)
+            scale = _max(_max(_abs(cur[c]), _abs(new[c])), 1e-12)
+            e = _abs(new[c] - y4[c]) / scale
+            err = e if err is None else _max(err, e)
         accepted = err <= tol
         # Step-size controller with the trace clamps.
-        log_ratio = torch.log(torch.clamp(err / tol, min=1e-30))
+        log_ratio = torch.log(_max(err / tol, 1e-30))
         scale_ok = sp.SAFETY * torch.exp(-0.2 * log_ratio)
         scale_bad = sp.SAFETY * torch.exp(-0.25 * log_ratio)
         sc = torch.where(accepted, scale_ok, scale_bad)
         sc = torch.where(err / tol <= 0.0, sp.MAX_SCALE, sc)
-        h_next = h * torch.clamp(sc, sp.MIN_SCALE, sp.MAX_SCALE)
-        h_next = torch.clamp(h_next, 1e-4 * dt, 50.0 * dt)
-        h_next = torch.minimum(h_next, 0.5 * (r - r_capture) + 1e-3 * dt)
-        h_next = torch.maximum(h_next, 1e-5 * dt)
+        h_next = h * _clip(sc, sp.MIN_SCALE, sp.MAX_SCALE)
+        h_next = _clip(h_next, 1e-4 * dt, 50.0 * dt)
+        h_next = _min(h_next, 0.5 * (r - r_capture) + 1e-3 * dt)
+        h_next = _max(h_next, 1e-5 * dt)
 
     (r_t, th_t, ph_t, pr_t, pth_t, t_t, sth_t, cth_t, sph_t, cph_t) = new
     finite = (
@@ -236,12 +365,15 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False):
     h_new = torch.where(active, h_next, h_carry)
 
     # Unit-circle renormalisation of the trig pairs.
-    n_th = torch.rsqrt(torch.clamp(sth_n * sth_n + cth_n * cth_n, min=0.25))
+    n_th = torch.rsqrt(_max(sth_n * sth_n + cth_n * cth_n, 0.25))
     sth_n = sth_n * n_th
     cth_n = cth_n * n_th
-    n_ph = torch.rsqrt(torch.clamp(sph_n * sph_n + cph_n * cph_n, min=0.25))
+    n_ph = torch.rsqrt(_max(sph_n * sph_n + cph_n * cph_n, 0.25))
     sph_n = sph_n * n_ph
     cph_n = cph_n * n_ph
+    if slave:
+        sth_n, cth_n, sph_n, cph_n = slave_trig(sth_n, cth_n, sph_n, cph_n,
+                                                th_n, ph_n)
 
     cx, cy, cz = _cart(r, sth, cth, sph, cph, a)
     cx_n, cy_n, cz_n = _cart(r_n, sth_n, cth_n, sph_n, cph_n, a)
@@ -249,7 +381,7 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False):
     dyc = cy_n - cy
     dzc = cz_n - cz
     step_len = torch.sqrt(dxc * dxc + dyc * dyc + dzc * dzc + 1e-24)
-    inv_len = 1.0 / torch.clamp(step_len, min=EPSILON)
+    inv_len = 1.0 / _max(step_len, EPSILON)
     dist_n = dist + torch.where(advance, step_len, 0.0)
     lx_n = torch.where(advance, dxc * inv_len, lx)
     ly_n = torch.where(advance, dyc * inv_len, ly)
@@ -280,12 +412,11 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False):
             # plane-crossing time.
             dz = z_new - z_prev
             approaching = z_new * dz < 0.0
-            lam_cross = h * torch.abs(z_new) / torch.clamp(torch.abs(dz),
-                                                           min=EPSILON)
+            lam_cross = h * _abs(z_new) / _max(_abs(dz), EPSILON)
             near = r_n < 1.5 * disk_outer
-            h_cap = torch.maximum(1.25 * lam_cross, 0.05 * dt)
+            h_cap = _max(1.25 * lam_cross, 0.05 * dt)
             h_new = torch.where(active & approaching & near,
-                                torch.minimum(h_new, h_cap), h_new)
+                                _min(h_new, h_cap), h_new)
 
     still = result == _ACTIVE
 
@@ -316,10 +447,35 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False):
     hz = torch.where(escaped, cz_n, hz)
 
     steps_n = steps + active.to(steps.dtype)
-    min_r_n = torch.where(advance, torch.minimum(min_r, r_n), min_r)
+    min_r_n = torch.where(advance, _min(min_r, r_n), min_r)
     return (r_n, th_n, ph_n, pr_n, pth_n, sth_n, cth_n, sph_n, cph_n,
             dist_n, steps_n, result, hx, hy, hz, lx_n, ly_n, lz_n,
             t_n, h_new, min_r_n)
+
+
+# State slots stored as the 15 output planes, in plane order.
+_OUT_SLOTS = (S_RESULT, S_DIST, S_STEPS, S_HX, S_HY, S_HZ, S_LX, S_LY, S_LZ,
+              S_R, S_ST, S_CT, S_SP, S_CP, S_MINR)
+
+
+def _init_state(scal, inp, result0):
+    """The 21 state slots at the start of a trace (the JAX package's
+    _load_init): BL state and trig from inp, hit position and last
+    direction from the ray's origin and direction, min_r = r0, h = dt;
+    dist, steps and t start at 0 and result at result0.  Fed tangent
+    planes with result0 = 0 it gives the initial tangent (the JAX
+    package's _zero_ctrl_tangents)."""
+    zeros = torch.zeros_like(inp[0])
+    return (inp[0], inp[1], inp[2], inp[3], inp[4],
+            inp[12], inp[13], inp[14], inp[15],
+            zeros, zeros, zeros + result0,
+            inp[6], inp[7], inp[8], inp[9], inp[10], inp[11],
+            zeros, zeros + scal[3], inp[0])
+
+
+def _scal_tuple(scal, inp):
+    """step_update's scalars: the 12 scene scalars and the per-ray L."""
+    return tuple(scal[k] for k in range(N_SCAL)) + (inp[5],)
 
 
 def trace_planes_plain(scal, inp, disk_enabled: bool, max_steps: int,
@@ -327,24 +483,60 @@ def trace_planes_plain(scal, inp, disk_enabled: bool, max_steps: int,
     """Plain version of the kernel: integrate every ray of inp (16, n)
     until it retires or max_steps.  A retired ray's state is frozen,
     as in the kernel's per-ray loop.  Returns out (15, n)."""
-    zeros = torch.zeros_like(inp[0])
-    state = (inp[0], inp[1], inp[2], inp[3], inp[4],
-             inp[12], inp[13], inp[14], inp[15],
-             zeros, zeros, zeros + _ACTIVE,
-             inp[6], inp[7], inp[8], inp[9], inp[10], inp[11],
-             zeros, zeros + scal[3], inp[0])
-    sc = tuple(scal[k] for k in range(N_SCAL)) + (inp[5],)
+    state = _init_state(scal, inp, _ACTIVE)
+    sc = _scal_tuple(scal, inp)
     for _ in range(max_steps):
         active = state[S_RESULT] == _ACTIVE
         if not bool(active.any()):
             break
         new = step_update(state, sc, disk_enabled, adaptive)
         state = tuple(torch.where(active, n, o) for n, o in zip(new, state))
-    return torch.stack(
-        [state[i] for i in (S_RESULT, S_DIST, S_STEPS, S_HX, S_HY, S_HZ,
-                            S_LX, S_LY, S_LZ, S_R, S_ST, S_CT, S_SP, S_CP,
-                            S_MINR)]
-    )
+    return torch.stack([state[i] for i in _OUT_SLOTS])
+
+
+def step_update_jvp(state, dstates, scal, dscals, disk_enabled: bool,
+                    adaptive: bool = False):
+    """The plain version of K2's step: torch.func.jvp of
+    tangent_guard(step_update(..., slave=True)), once per tangent
+    direction, as the JAX package's multi-tangent kernel applies jax.jvp
+    per direction.  dstates / dscals: one tangent tuple per direction.
+    Returns (new state, [new tangent per direction])."""
+
+    def f(st, sc):
+        return sensitivity.tangent_guard(
+            1, step_update(st, sc, disk_enabled, adaptive, slave=True)
+        )
+
+    new, dnews = None, []
+    for dst, dsc in zip(dstates, dscals):
+        new, dnew = jvp(f, (tuple(state), tuple(scal)),
+                        (tuple(dst), tuple(dsc)))
+        dnews.append(dnew)
+    return new, dnews
+
+
+def trace_planes_fwdgrad_plain(scal, dscals, inp, dinps, disk_enabled: bool,
+                               max_steps: int, adaptive: bool):
+    """Plain version of K2: integrate every ray of inp (16, n) with the
+    tangent directions dscals (n_tan, 12), dinps (n_tan, 16, n) riding
+    beside the one primal.  A retired ray's primal and tangents are
+    frozen.  Returns (out (15, n), douts (n_tan, 15, n))."""
+    state = _init_state(scal, inp, _ACTIVE)
+    sc = _scal_tuple(scal, inp)
+    dstates = [_init_state(ds, di, 0.0) for ds, di in zip(dscals, dinps)]
+    dscs = [_scal_tuple(ds, di) for ds, di in zip(dscals, dinps)]
+    for _ in range(max_steps):
+        active = state[S_RESULT] == _ACTIVE
+        if not bool(active.any()):
+            break
+        new, dnews = step_update_jvp(state, dstates, sc, dscs, disk_enabled,
+                                     adaptive)
+        state = tuple(torch.where(active, n, o) for n, o in zip(new, state))
+        dstates = [tuple(torch.where(active, n, o) for n, o in zip(dn, do))
+                   for dn, do in zip(dnews, dstates)]
+    return (torch.stack([state[i] for i in _OUT_SLOTS]),
+            torch.stack([torch.stack([ds[i] for i in _OUT_SLOTS])
+                         for ds in dstates]))
 
 
 def trace_planes(scal, inp, disk_enabled: bool, max_steps: int,
@@ -355,10 +547,138 @@ def trace_planes(scal, inp, disk_enabled: bool, max_steps: int,
     hand-written kernel (csrc/trace_kernel.cu) on the current stream or
     raise.  Returns out (15, n) float32."""
     global launches
-    if scal.requires_grad or inp.requires_grad:
+    _check_planes(scal, inp)
+    if inp.device.type == "cpu":
+        return trace_planes_plain(scal, inp, disk_enabled, max_steps,
+                                  adaptive)
+    n = inp.shape[1]
+    if n == 0:
+        return torch.empty((N_OUT_PLANES, 0), dtype=torch.float32,
+                           device=inp.device)
+    out = _Launch.apply(_launch_k1, scal, inp, disk_enabled, max_steps,
+                        adaptive)
+    launches += 1
+    return out
+
+
+def trace_planes_fwdgrad(scal, dscals, inp, dinps, disk_enabled: bool,
+                         max_steps: int, adaptive: bool):
+    """Integrate every ray of inp (16, n) with n_tan forward tangents
+    dscals (n_tan, 12), dinps (n_tan, 16, n).
+
+    CPU tensors go through trace_planes_fwdgrad_plain; CUDA tensors
+    launch K2 (csrc/trace_fwdgrad.cu) on the current stream, in passes
+    of at most MAX_TANGENTS_PER_PASS tangents (each pass recomputes the
+    same primal), or raise.  Returns (out (15, n), douts (n_tan, 15, n))
+    float32."""
+    global fwdgrad_launches
+    _check_planes(scal, inp)
+    n_tan = dscals.shape[0] if dscals.dim() == 2 else -1
+    if dscals.shape != (n_tan, N_SCAL) or n_tan < 1:
+        raise ValueError(f"dscals must be (n_tan >= 1, {N_SCAL}), got "
+                         f"{tuple(dscals.shape)}")
+    if dinps.shape != (n_tan,) + tuple(inp.shape):
+        raise ValueError(f"dinps must be ({n_tan}, {N_INP_PLANES}, "
+                         f"{inp.shape[1]}), got {tuple(dinps.shape)}")
+    for t in (dscals, dinps):
+        if t.dtype != torch.float32:
+            raise TypeError("dscals and dinps must be float32")
+        if t.device != inp.device:
+            raise ValueError("tangents and primal must be on one device")
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise NotImplementedError(
+                "the geodesic kernels are forward-mode only; reverse mode "
+                "is not ported yet"
+            )
+    if inp.device.type == "cpu":
+        return trace_planes_fwdgrad_plain(scal, dscals, inp, dinps,
+                                          disk_enabled, max_steps, adaptive)
+    n = inp.shape[1]
+    if n == 0:
+        return (torch.empty((N_OUT_PLANES, 0), device=inp.device),
+                torch.empty((n_tan, N_OUT_PLANES, 0), device=inp.device))
+    out = None
+    douts = []
+    for t0 in range(0, n_tan, MAX_TANGENTS_PER_PASS):
+        k = min(MAX_TANGENTS_PER_PASS, n_tan - t0)
+        buf = _Launch.apply(_launch_k2, scal, dscals[t0:t0 + k], inp,
+                            dinps[t0:t0 + k], disk_enabled, max_steps,
+                            adaptive)
+        fwdgrad_launches += 1
+        if out is None:
+            out = buf[:N_OUT_PLANES]
+        douts.append(buf[N_OUT_PLANES:].view(k, N_OUT_PLANES, n))
+    return out, torch.cat(douts) if len(douts) > 1 else douts[0]
+
+
+class _Launch(torch.autograd.Function):
+    """A kernel launch, launch(*args), as one autograd node without a
+    derivative.  Its forward receives plain tensors under torch.func
+    transforms too (they unwrap every tensor that carries no tangent of
+    theirs), so the launch can hand raw device pointers to the kernel;
+    a tangent or a cotangent that reaches the node raises instead of
+    passing on a silent zero (forward-over-forward through _Planes'
+    rule, say)."""
+
+    @staticmethod
+    def forward(launch, *args):
+        return launch(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def jvp(ctx, *tangents):
         raise NotImplementedError(
-            "the geodesic kernel is forward-only; gradients are not "
-            "ported yet"
+            "the geodesic kernels have no derivative of their own: "
+            "differentiate trace_rays_kernel once with torch.func.jvp, or "
+            "use trace_planes_fwdgrad / grad.fast_grad"
+        )
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "reverse mode through the geodesic kernel is not ported yet; "
+            "use torch.func.jvp or grad.fast_grad"
+        )
+
+
+def _launch_k1(scal, inp, disk_enabled, max_steps, adaptive):
+    from blackhole_tpu_torch import cuda_lib
+
+    scal, inp = scal.contiguous(), inp.contiguous()
+    out = torch.empty((N_OUT_PLANES, inp.shape[1]), dtype=torch.float32,
+                      device=inp.device)
+    with torch.cuda.device(inp.device):
+        cuda_lib.trace_planes(scal, inp, out, inp.shape[1], max_steps,
+                              disk_enabled, adaptive,
+                              torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _launch_k2(scal, dscals, inp, dinps, disk_enabled, max_steps, adaptive):
+    from blackhole_tpu_torch import cuda_lib
+
+    scal, inp = scal.contiguous(), inp.contiguous()
+    dscals, dinps = dscals.contiguous(), dinps.contiguous()
+    k, n = dscals.shape[0], inp.shape[1]
+    buf = torch.empty(((1 + k) * N_OUT_PLANES, n), dtype=torch.float32,
+                      device=inp.device)
+    with torch.cuda.device(inp.device):
+        cuda_lib.trace_planes_fwdgrad(
+            scal, dscals, inp, dinps, buf, n, k, max_steps, disk_enabled,
+            adaptive, torch.cuda.current_stream().cuda_stream,
+        )
+    return buf
+
+
+def _check_planes(scal, inp):
+    """Shape, type and device checks shared by the kernels' wrappers."""
+    if torch.is_grad_enabled() and (scal.requires_grad or inp.requires_grad):
+        raise NotImplementedError(
+            "the geodesic kernels are forward-mode only; reverse mode is "
+            "not ported yet"
         )
     if inp.dim() != 2 or inp.shape[0] != N_INP_PLANES:
         raise ValueError(f"inp must be ({N_INP_PLANES}, n), got "
@@ -369,26 +689,49 @@ def trace_planes(scal, inp, disk_enabled: bool, max_steps: int,
         raise TypeError("scal and inp must be float32")
     if scal.device != inp.device:
         raise ValueError("scal and inp must be on one device")
-    if inp.device.type == "cpu":
-        return trace_planes_plain(scal, inp, disk_enabled, max_steps,
-                                  adaptive)
-    if inp.device.type != "cuda":
+    if inp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {inp.device}")
-    from blackhole_tpu_torch import cuda_lib
 
-    scal = scal.contiguous()
-    inp = inp.contiguous()
-    n = inp.shape[1]
-    out = torch.empty((N_OUT_PLANES, n), dtype=torch.float32,
-                      device=inp.device)
-    if n == 0:
-        return out
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        cuda_lib.trace_planes(scal, inp, out, n, max_steps, disk_enabled,
-                              adaptive, stream)
-    launches += 1
-    return out
+
+def _f32(t):
+    """A tangent in float32.  torch.func.jvp gives a 0-d tensor times a
+    Python float a float64 tangent (plain forward AD does not), so the
+    scene scalars' tangents can arrive as float64; the kernel takes
+    float32, as the JAX package computes them."""
+    return t.to(torch.float32)
+
+
+class _Planes(torch.autograd.Function):
+    """The planes pass with a forward-mode rule (the JAX package's
+    _get_core custom_jvp): forward runs K1 (the plain version on the
+    CPU); under torch.func.jvp its tangent comes from K2 with one
+    tangent, which stands for K3.  Reverse mode raises."""
+
+    @staticmethod
+    def forward(scal, inp, disk_enabled, max_steps, adaptive):
+        return trace_planes(scal, inp, disk_enabled, max_steps, adaptive)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        scal, inp, disk_enabled, max_steps, adaptive = inputs
+        ctx.save_for_forward(scal, inp)
+        ctx.args = (disk_enabled, max_steps, adaptive)
+
+    @staticmethod
+    def jvp(ctx, dscal, dinp, *_):
+        scal, inp = ctx.saved_tensors
+        dscal = torch.zeros_like(scal) if dscal is None else _f32(dscal)
+        dinp = torch.zeros_like(inp) if dinp is None else _f32(dinp)
+        _, douts = trace_planes_fwdgrad(scal, dscal[None], inp, dinp[None],
+                                        *ctx.args)
+        return douts[0]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise NotImplementedError(
+            "reverse mode through the geodesic kernel is not ported yet; "
+            "use torch.func.jvp or grad.fast_grad"
+        )
 
 
 def _check_integrator(scene: Scene) -> bool:
@@ -430,9 +773,8 @@ def prepare(origins, directions, scene: Scene):
             bh.mass, bh.a, bh.charge, cfg.time_step, cfg.max_ray_distance,
             r_capture, disk.inner_radius, disk.outer_radius,
             torch.sin(disk.inclination), torch.cos(disk.inclination),
-            torch.clamp(cfg.tolerance, min=1e-12),
-            derived.kerr_photon_orbit_radius(bh.mass, torch.abs(bh.spin),
-                                             1.0),
+            _max(cfg.tolerance, 1e-12),
+            derived.kerr_photon_orbit_radius(bh.mass, _abs(bh.spin), 1.0),
         ]
     ).to(device=o.device, dtype=torch.float32)
     return scal, inp
@@ -490,15 +832,103 @@ def trace_rays_kernel(origins, directions, scene: Scene, order=None) -> Hit:
         o, d = o[order], d[order]
         inv_order = torch.argsort(order)
     scal, inp = prepare(o, d, scene)
-    out = trace_planes(
-        scal, inp, bool(scene.disk_enabled and scene.config.show_disk),
-        int(scene.config.max_steps), adaptive,
-    )
-    L = None
-    if _needs_L(scene):
-        # Conserved L in the caller's order, recomputed from the rays.
-        bh = scene.blackhole
-        _, _, L, _ = geodesic.init_null_rays_aug(
-            o0, coords.normalize(d0), bh.mass, bh.a, bh.charge
-        )
+    out = _Planes.apply(scal, inp, _disk_on(scene),
+                        int(scene.config.max_steps), adaptive)
+    L = _L_of(scene, o0, d0) if _needs_L(scene) else None
     return postprocess(out, n, batch_shape, scene, inv_order, L)
+
+
+def _disk_on(scene: Scene) -> bool:
+    return bool(scene.disk_enabled and scene.config.show_disk)
+
+
+def _L_of(scene: Scene, o, d):
+    """Conserved L of the rays (caller's order), recomputed from them."""
+    bh = scene.blackhole
+    return geodesic.init_null_rays_aug(o, coords.normalize(d), bh.mass, bh.a,
+                                       bh.charge)[2]
+
+
+def trace_rays_kernel_fwdgrad(origins, directions, scene: Scene, tangents,
+                              order=None):
+    """One K2 pass propagating several tangent directions (the JAX
+    package's trace_rays_pallas_fwdgrad).
+
+    tangents: a sequence of scene tangents (a Scene whose tensor leaves
+    are tangents, as torch.func.jvp of a function returning a Scene
+    gives), or (dscene, dorigins, ddirections) triples when the rays
+    themselves depend on the differentiated parameters.  order: optional
+    depth-sort permutation, applied to the primal rays and to the ray
+    tangents alike.  Returns (hit, [hit tangent per direction])."""
+    planes_in, finish = prepare_fwdgrad(origins, directions, scene, tangents,
+                                        order)
+    return finish(*trace_planes_fwdgrad(
+        *planes_in, _disk_on(scene), int(scene.config.max_steps),
+        _check_integrator(scene)))
+
+
+def prepare_fwdgrad(origins, directions, scene: Scene, tangents, order=None):
+    """The host stages around trace_rays_kernel_fwdgrad's planes pass.
+
+    Returns ((scal, dscals, inp, dinps), finish): the planes pass's
+    inputs, the tangents from torch.func.jvp of prepare, and finish(out,
+    douts) -> (hit, [hit tangent per direction]), which shades the
+    planes and takes each Hit tangent from torch.func.jvp of postprocess
+    given the tangent planes (dL from that of the caller-order L)."""
+    _check_integrator(scene)
+    trace.check_hard_edge(scene)
+    batch_shape = origins.shape[:-1]
+
+    def rays(x):
+        # torch.func.jvp refuses primals and tangents whose elements share
+        # memory, such as broadcast camera origins.
+        return x.to(torch.float32).reshape(-1, 3).contiguous()
+
+    o, d = rays(origins), rays(directions)
+    n = o.shape[0]
+    o0, d0 = o, d  # caller order
+    inv_order = None
+    if order is not None:
+        o, d = o[order], d[order]
+        inv_order = torch.argsort(order)
+
+    def pre(s, o_, d_):
+        return prepare(o_, d_, s)
+
+    scal, inp = pre(scene, o, d)
+    dscals, dinps, ray_tangents = [], [], []
+    for tan in tangents:
+        if isinstance(tan, tuple) and len(tan) == 3:
+            ds, do, dd = tan[0], rays(tan[1]), rays(tan[2])
+        else:
+            ds, do, dd = tan, torch.zeros_like(o0), torch.zeros_like(d0)
+        ray_tangents.append((ds, do, dd))
+        if order is not None:
+            do, dd = do[order], dd[order]
+        _, (dscal, dinp) = jvp(pre, (scene, o, d), (ds, do, dd))
+        dscals.append(dscal)
+        dinps.append(dinp)
+    planes_in = (scal, _f32(torch.stack(dscals)), inp,
+                 _f32(torch.stack(dinps)))
+
+    def finish(out, douts):
+        if not _needs_L(scene):
+            def post(out_, s):
+                return postprocess(out_, n, batch_shape, s, inv_order)
+
+            return post(out, scene), [
+                jvp(post, (out, scene), (dout, ds))[1]
+                for dout, (ds, _, _) in zip(douts, ray_tangents)]
+
+        def post_L(out_, s, L_):
+            return postprocess(out_, n, batch_shape, s, inv_order, L_)
+
+        L = _L_of(scene, o0, d0)
+        dhits = []
+        for dout, rtan in zip(douts, ray_tangents):
+            # dL rides the jvp so the Kerr-mode shading sees its tangent.
+            _, dL = jvp(_L_of, (scene, o0, d0), rtan)
+            dhits.append(jvp(post_L, (out, scene, L), (dout, rtan[0], dL))[1])
+        return post_L(out, scene, L), dhits
+
+    return planes_in, finish

@@ -1,10 +1,13 @@
-"""The CUDA geodesic kernel on the card (marker `gpu`; skips without one).
+"""The CUDA geodesic kernels on the card (marker `gpu`; skips without one).
 
-Repeats chip_smoke.py's phases 3 and 4 at 32x32: the kernel against its
-plain PyTorch version on the same CUDA inputs under the parity
-contracts, and a depth-sorted kernel trace bitwise equal to the raster
-one.  Run on a machine with a GPU (and without jax, which the suite's
-conftest imports):
+Repeats chip_smoke.py's checks at 32x32: K1 against its plain PyTorch
+version on the same CUDA inputs under the parity contracts, K2 against
+its plain version (RK4: K2's contract, chip_smoke.fwdgrad_stats),
+depth-sorted traces (forward and fwdgrad) bitwise equal to raster ones,
+and torch.func.jvp of a trace launching K2 once with one tangent (and a
+second derivative through it raising).  Run
+on a machine with a GPU (and without jax, which the suite's conftest
+imports):
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
@@ -38,6 +41,53 @@ def test_depth_sorted_equals_raster_on_card(cuda):
     assert stats["elementwise_mismatch"] == 0
 
 
+def test_fwdgrad_kernel_matches_plain_on_card(cuda):
+    from blackhole_tpu_torch.render import trace_kernel
+
+    before = trace_kernel.fwdgrad_launches
+    stats = chip_smoke.check_fwdgrad_vs_plain(cuda, size=32,
+                                              integrators=("rk4",))
+    assert len(stats) == 3
+    assert all(s["codes_vs_k1"] == 0 for s in stats)
+    assert trace_kernel.fwdgrad_launches == before + 3
+
+
+def test_jvp_of_trace_launches_k2_once_with_one_tangent(cuda, monkeypatch):
+    import dataclasses
+
+    from blackhole_tpu_torch import cuda_lib
+    from blackhole_tpu_torch.render import trace_kernel
+
+    seen = []
+    launch = cuda_lib.trace_planes_fwdgrad
+
+    def spy(*args):
+        seen.append(args[6])  # n_tan
+        return launch(*args)
+
+    monkeypatch.setattr(cuda_lib, "trace_planes_fwdgrad", spy)
+    scene, _, o, d = chip_smoke.parity_scene(0.9, True, "rk4", cuda, 16,
+                                             max_steps=60)
+    m0 = scene.blackhole.mass
+
+    def loss(m):
+        s = dataclasses.replace(scene, blackhole=dataclasses.replace(
+            scene.blackhole, mass=m))
+        return trace_kernel.trace_rays_kernel(o, d, s).color.mean()
+
+    _, dl = torch.func.jvp(loss, (m0,), (torch.ones_like(m0),))
+    assert seen == [1]
+    assert bool(torch.isfinite(dl))
+
+    # A second derivative through the kernel is not ported: forward over
+    # forward raises rather than returning a silent zero.
+    def dloss(m):
+        return torch.func.jvp(loss, (m,), (torch.ones_like(m),))[1]
+
+    with pytest.raises(NotImplementedError):
+        torch.func.jvp(dloss, (m0,), (torch.ones_like(m0),))
+
+
 def test_kernel_rejects_grad_and_bad_layout(cuda):
     from blackhole_tpu_torch.render import trace_kernel
 
@@ -53,3 +103,18 @@ def test_kernel_rejects_grad_and_bad_layout(cuda):
     with pytest.raises(TypeError):
         trace_kernel.trace_planes(torch.zeros(12, device=cuda),
                                   inp.double(), True, 4, False)
+    # K2's wrapper: reverse mode, layout and tangent count.
+    dscals = torch.zeros(1, 12, device=cuda)
+    dinps = torch.zeros(1, 16, 8, device=cuda)
+    with pytest.raises(NotImplementedError):
+        trace_kernel.trace_planes_fwdgrad(
+            torch.zeros(12, device=cuda), dscals.requires_grad_(True), inp,
+            dinps, True, 4, False)
+    with pytest.raises(ValueError):
+        trace_kernel.trace_planes_fwdgrad(
+            torch.zeros(12, device=cuda), torch.zeros(0, 12, device=cuda),
+            inp, torch.zeros(0, 16, 8, device=cuda), True, 4, False)
+    with pytest.raises(ValueError):
+        trace_kernel.trace_planes_fwdgrad(
+            torch.zeros(12, device=cuda), torch.zeros(1, 12, device=cuda),
+            inp, torch.zeros(2, 16, 8, device=cuda), True, 4, False)

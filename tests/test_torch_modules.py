@@ -88,7 +88,7 @@ def test_camera_matches_jax():
     jcamera = jtypes.Camera.create(position=(2.0, -30.0, 8.0),
                                    direction=(-2.0, 30.0, -8.0),
                                    up=(0.0, 0.0, 1.0), fov_deg=31.0)
-    camera = types.camera_from_reference(jcamera)
+    camera = types.camera_from_reference(jcamera, device="cpu")
     for f, fj in zip(cam.camera_basis(camera), jcam.camera_basis(jcamera)):
         _close(f, fj)
     idx = np.arange(0, 5000, 7, dtype=np.int32)
@@ -159,7 +159,7 @@ def test_shade_disk_hit_matches_jax(mode, incl):
     jdisk = jtypes.Disk.create(6.0, 20.0, 1.3, 1.0, inclination=incl)
     jcfg = jtypes.SimConfig.create(disk_kinematics=mode)
     jscene = jtypes.Scene(jbh, jdisk, jcfg)
-    scene = types.scene_from_reference(jscene)
+    scene = types.scene_from_reference(jscene, device="cpu")
     got = shading.shade_disk_hit(_t(pos), _t(dirs), scene.blackhole,
                                  scene.disk, scene.config, L=_t(L))
     ref = jshading.shade_disk_hit(jnp.asarray(pos), jnp.asarray(dirs), jbh,
@@ -201,7 +201,7 @@ def test_kerr_mode_warns_for_inclined_disk(caplog):
         jtypes.BlackHole.create(1.0, 0.5),
         jtypes.Disk.create(inclination=0.4),
         jtypes.SimConfig.create(disk_kinematics="kerr"),
-    ))
+    ), device="cpu")
     with caplog.at_level("WARNING"):
         shading.shade_disk_hit(_t(pos), _t(dirs), scene.blackhole,
                                scene.disk, scene.config, L=torch.ones(8))
@@ -222,7 +222,7 @@ def test_scene_from_reference_round_trips():
         disk_enabled=False,
         env_map=jnp.asarray(env),
     )
-    scene = types.scene_from_reference(jscene)
+    scene = types.scene_from_reference(jscene, device="cpu")
     for part in ("blackhole", "disk", "config"):
         for name, value in vars(getattr(scene, part)).items():
             ref = getattr(getattr(jscene, part), name)
@@ -237,12 +237,12 @@ def test_scene_from_reference_round_trips():
     _close(scene.blackhole.r_plus, jscene.blackhole.r_plus, atol=0)
     jcamera = jtypes.Camera.create((1.0, 2.0, 3.0), (0.0, -1.0, 0.5),
                                    (0.0, 0.0, 1.0), 33.0)
-    camera = types.camera_from_reference(jcamera)
+    camera = types.camera_from_reference(jcamera, device="cpu")
     for name, value in vars(camera).items():
         np.testing.assert_array_equal(value.numpy(),
                                       np.asarray(getattr(jcamera, name)))
     with pytest.raises(ValueError):
-        types.SimConfig.create(disk_kinematics="bogus")
+        types.SimConfig.create(disk_kinematics="bogus", device="cpu")
 
 
 def test_port_never_imports_jax():
@@ -253,9 +253,10 @@ def test_port_never_imports_jax():
         "from blackhole_tpu_torch.geom.types import "
         "BlackHole, Camera, Disk, Scene, SimConfig\n"
         "from blackhole_tpu_torch.render import image\n"
-        "scene = Scene(BlackHole.create(1.0, 0.9), Disk.create(),\n"
-        "              SimConfig.create(max_steps=40))\n"
-        "img = image.render_image(scene, Camera.create(), 8, 8)\n"
+        "cpu = dict(device='cpu')\n"
+        "scene = Scene(BlackHole.create(1.0, 0.9, **cpu), Disk.create(**cpu),\n"
+        "              SimConfig.create(max_steps=40, **cpu))\n"
+        "img = image.render_image(scene, Camera.create(**cpu), 8, 8)\n"
         "assert img.shape == (8, 8, 3)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
@@ -271,3 +272,24 @@ def test_port_never_imports_jax():
             assert not (words[:1] in (["import"], ["from"])
                         and any(w.startswith("jax") for w in words[1:2])), \
                 f"{path}: {line}"
+
+
+def test_records_default_to_the_card():
+    """A record made without a device is made on the card: without one
+    it fails through torch's own error instead of landing on the CPU."""
+    jscene = jtypes.Scene(jtypes.BlackHole.create(1.0, 0.5),
+                          jtypes.Disk.create(), jtypes.SimConfig.create())
+    makers = (
+        lambda: types.BlackHole.create(1.0, 0.5).mass,
+        lambda: types.Disk.create().inner_radius,
+        lambda: types.Camera.create().position,
+        lambda: types.SimConfig.create().time_step,
+        lambda: types.scene_from_reference(jscene).blackhole.mass,
+        lambda: types.camera_from_reference(jtypes.Camera.create()).up,
+    )
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                make()

@@ -64,7 +64,8 @@ def _trace_both(scene, o, d):
                                           scene, interpret=True)
     got = trace_kernel.trace_rays_kernel(torch.from_numpy(o),
                                          torch.from_numpy(d),
-                                         scene_from_reference(scene))
+                                         scene_from_reference(scene,
+                                                              device="cpu"))
     return got, ref
 
 
@@ -131,7 +132,7 @@ def test_trace_rays_kernel_non_tile_batch():
     hit = trace_kernel.trace_rays_kernel(
         torch.from_numpy(o[:776]).reshape(8, 97, 3),
         torch.from_numpy(d[:776]).reshape(8, 97, 3),
-        scene_from_reference(scene),
+        scene_from_reference(scene, device="cpu"),
     )
     assert hit.result.shape == (8, 97) and hit.position.shape == (8, 97, 3)
     np.testing.assert_array_equal(hit.result.numpy().reshape(-1),
@@ -146,8 +147,9 @@ def test_render_image_matches_jax(integrator, max_steps):
     within 2e-4; RKF45: the contract's colour statistics per pixel."""
     scene, camera, _, _ = _case(0.9, True, integrator, max_steps)
     ref = np.asarray(jimage.render_image(scene, camera, 32, 32, spp=2))
-    got = image.render_image(scene_from_reference(scene),
-                             camera_from_reference(camera), 32, 32, spp=2)
+    got = image.render_image(scene_from_reference(scene, device="cpu"),
+                             camera_from_reference(camera, device="cpu"),
+                             32, 32, spp=2)
     assert got.shape == (32, 32, 3) and got.dtype == torch.float32
     assert bool(torch.isfinite(got).all())
     dc = np.abs(got.numpy() - ref).max(-1)
@@ -161,9 +163,9 @@ def test_depth_sorted_trace_equals_raster():
     """Regrouping rays by predicted depth leaves every ray's result
     unchanged: the kernel's per-ray arithmetic is position-independent."""
     scene, camera, o, d = _case(0.9, True, max_steps=150)
-    tscene = scene_from_reference(scene)
-    order = image.predicted_depth_order(tscene, camera_from_reference(camera),
-                                        32, 32, block=4)
+    tscene = scene_from_reference(scene, device="cpu")
+    order = image.predicted_depth_order(
+        tscene, camera_from_reference(camera, device="cpu"), 32, 32, block=4)
     assert sorted(order.tolist()) == list(range(1024))
     o, d = torch.from_numpy(o), torch.from_numpy(d)
     raster = trace_kernel.trace_rays_kernel(o, d, tscene)
@@ -177,16 +179,16 @@ def test_predicted_depth_order_matches_jax():
     scene, camera, _, _ = _case(0.9, True, max_steps=150)
     ref = np.asarray(jimage.predicted_depth_order(scene, camera, 32, 30,
                                                   block=4, interpret=True))
-    got = image.predicted_depth_order(scene_from_reference(scene),
-                                      camera_from_reference(camera), 32, 30,
-                                      block=4)
+    got = image.predicted_depth_order(
+        scene_from_reference(scene, device="cpu"),
+        camera_from_reference(camera, device="cpu"), 32, 30, block=4)
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_unported_paths_raise():
     scene, _, o, d = _case(0.9, True, max_steps=20)
     o, d = torch.from_numpy(o[:64]), torch.from_numpy(d[:64])
-    tscene = scene_from_reference(scene)
+    tscene = scene_from_reference(scene, device="cpu")
     with pytest.raises(NotImplementedError):
         image.trace_rays_fast(o, d, dataclasses.replace(
             tscene, config=dataclasses.replace(tscene.config,
@@ -197,12 +199,54 @@ def test_unported_paths_raise():
         trace_kernel.trace_rays_kernel(o, d, dataclasses.replace(
             tscene, config=dataclasses.replace(tscene.config,
                                                shadow_softness=0.3)))
-    # Forward only: a tensor that requires grad never reaches the loop.
+    # Forward mode only: reverse mode through the loop raises (at
+    # .backward(), since the planes pass is an autograd Function whose
+    # forward-mode rule is ported) instead of returning a silent zero.
     mass = tscene.blackhole.mass.clone().requires_grad_(True)
+    hit = trace_kernel.trace_rays_kernel(o, d, dataclasses.replace(
+        tscene, blackhole=dataclasses.replace(tscene.blackhole, mass=mass)))
     with pytest.raises(NotImplementedError):
-        trace_kernel.trace_rays_kernel(o, d, dataclasses.replace(
-            tscene, blackhole=dataclasses.replace(tscene.blackhole,
-                                                  mass=mass)))
+        hit.color.sum().backward()
+
+
+def test_launch_node_sees_plain_tensors_and_refuses_derivatives():
+    """The node every CUDA launch runs in (trace_kernel._Launch), driven
+    with a CPU stand-in for the kernel inside a forward-mode rule like
+    _Planes': the launch receives tensors whose memory it can address
+    under torch.func.jvp, the rule's tangent is right, and a derivative
+    of the launch itself (forward over forward, reverse) raises instead
+    of coming back as a silent zero."""
+    def launch(x, dx, scale):
+        x.data_ptr(), dx.data_ptr()  # raw pointers, as ctypes takes them
+        return torch.stack([x * x, scale * x * dx])
+
+    class Square(torch.autograd.Function):
+        @staticmethod
+        def forward(x):
+            return trace_kernel._Launch.apply(launch, x, torch.zeros_like(x),
+                                              2.0)[0]
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_forward(inputs[0])
+
+        @staticmethod
+        def jvp(ctx, dx):
+            (x,) = ctx.saved_tensors
+            return trace_kernel._Launch.apply(launch, x, dx, 2.0)[1]
+
+    x = torch.linspace(-1.0, 2.0, 5)
+    y, dy = torch.func.jvp(Square.apply, (x,), (torch.ones(5),))
+    np.testing.assert_array_equal(y.numpy(), (x * x).numpy())
+    np.testing.assert_array_equal(dy.numpy(), (2.0 * x).numpy())
+
+    def inner(x_):
+        return torch.func.jvp(Square.apply, (x_,), (torch.ones(5),))[1]
+
+    with pytest.raises(NotImplementedError):
+        torch.func.jvp(inner, (x,), (torch.ones(5),))
+    with pytest.raises(NotImplementedError):
+        Square.apply(x.clone().requires_grad_(True)).sum().backward()
 
 
 def test_temporal_accumulate_matches_jax():

@@ -130,7 +130,7 @@ def test_step_update_matches_jax(adaptive, disk, incl):
 # --- CPU twin of the CUDA source ----------------------------------------
 
 _HOST_LOOP = r"""
-#include "geodesic_step.cuh"
+#include "dual.cuh"
 extern "C" void bh_trace_planes_host(const float* scal, const float* inp,
                                      float* out, long long n, int max_steps,
                                      int disk_on, int adaptive) {
@@ -146,6 +146,176 @@ extern "C" void bh_trace_planes_host(const float* scal, const float* inp,
       bh::trace_ray<false, false>(inp, out, n, i, s, max_steps);
   }
 }
+
+// K2 with two tangents (Dual<2>), as trace_fwdgrad.cu runs it.
+template <typename F>
+void fwdgrad_rays(const float* scal, const float* dscal, const float* inp,
+                  const float* dinp, float* out, long long n, int max_steps,
+                  int disk_on, int adaptive, int n_tan) {
+  for (long long i = 0; i < n; ++i) {
+#define BH_RAY(N, D, A)                                                    \
+    bh::trace_ray_fwdgrad<N, D, A, F>(scal, dscal, inp, dinp, out, n, i,  \
+                                      max_steps)
+    if (n_tan == 1) {
+      if (disk_on && adaptive) BH_RAY(1, true, true);
+      else if (disk_on) BH_RAY(1, true, false);
+      else if (adaptive) BH_RAY(1, false, true);
+      else BH_RAY(1, false, false);
+    } else {
+      if (disk_on && adaptive) BH_RAY(2, true, true);
+      else if (disk_on) BH_RAY(2, true, false);
+      else if (adaptive) BH_RAY(2, false, true);
+      else BH_RAY(2, false, false);
+    }
+#undef BH_RAY
+  }
+}
+
+extern "C" void bh_trace_planes_fwdgrad_host(
+    const float* scal, const float* dscal, const float* inp,
+    const float* dinp, float* out, long long n, int max_steps, int disk_on,
+    int adaptive) {
+  fwdgrad_rays<float>(scal, dscal, inp, dinp, out, n, max_steps, disk_on,
+                      adaptive, 2);
+}
+
+// A float that counts the floating-point operations the kernels' source
+// performs on it: +, -, *, / and max/min one each, sqrt, log and exp one,
+// the renormalisation's 1 / sqrt two; negation, abs and comparisons none.
+// An FMA is a multiply and an add here: two.  `excess` counts those of
+// them that the source's forms spend beyond the least the same
+// arithmetic needs: 1 / sqrt is one rsqrt; a Dual quotient spends
+// 1 / (b b) once and four operations per tangent where the quotient rule
+// q' = (a' - q b') / b spends three; float / Dual spends 1 / (b b) and two
+// per tangent where k = q / b and one product per tangent do; a Dual
+// max/min takes a weighted sum of the tangents where a select does (the
+// weights differ from 0 and 1 only at a tie).
+namespace cnt {
+long long flops = 0;
+long long excess = 0;
+struct Flop {
+  float v;
+  Flop() {}
+  Flop(float x) : v(x) {}
+};
+inline Flop op(float x) { ++flops; return Flop(x); }
+#define BH_ARITH(OP)                                                       \
+  inline Flop operator OP(Flop a, Flop b) { return op(a.v OP b.v); }      \
+  inline Flop operator OP(Flop a, float b) { return op(a.v OP b); }       \
+  inline Flop operator OP(float a, Flop b) { return op(a OP b.v); }
+BH_ARITH(+)
+BH_ARITH(-)
+BH_ARITH(*)
+BH_ARITH(/)
+#undef BH_ARITH
+#define BH_CMP(OP)                                                         \
+  inline bool operator OP(Flop a, Flop b) { return a.v OP b.v; }          \
+  inline bool operator OP(Flop a, float b) { return a.v OP b; }
+BH_CMP(<)
+BH_CMP(<=)
+BH_CMP(>)
+BH_CMP(>=)
+BH_CMP(==)
+#undef BH_CMP
+inline Flop operator-(Flop a) { return Flop(-a.v); }
+inline Flop sqrt_(Flop a) { return op(sqrtf(a.v)); }
+inline Flop rsqrt_(Flop a) {
+  ++flops;
+  ++excess;
+  return op(1.0f / sqrtf(a.v));
+}
+inline Flop log_(Flop a) { return op(logf(a.v)); }
+inline Flop exp_(Flop a) { return op(expf(a.v)); }
+inline Flop abs_(Flop a) { return Flop(fabsf(a.v)); }
+inline Flop jmax(Flop a, Flop b) { return op(bh::jmax(a.v, b.v)); }
+inline Flop jmin(Flop a, Flop b) { return op(bh::jmin(a.v, b.v)); }
+inline Flop jmax(Flop a, float b) { return op(bh::jmax(a.v, b)); }
+inline Flop jmin(Flop a, float b) { return op(bh::jmin(a.v, b)); }
+inline bool is_finite(Flop a) { return bh::is_finite(a.v); }
+inline float val(Flop a) { return a.v; }
+inline void slave_trig(Flop&, Flop&, Flop&, Flop&, Flop, Flop) {}
+
+// The Dual forms on the counting type, found by argument-dependent lookup
+// before dual.cuh's generic ones: each adds its excess and runs dual.cuh's.
+template <int N>
+using D = bh::Dual<N, Flop>;
+template <int N>
+D<N> operator/(const D<N>& a, const D<N>& b) {
+  excess += 2 + N;
+  return bh::operator/(a, b);
+}
+template <int N>
+D<N> operator/(float c, const D<N>& b) {
+  excess += 1 + N;
+  return bh::operator/(c, b);
+}
+template <int N>
+D<N> jmax(const D<N>& a, const D<N>& b) {
+  excess += 3 * N;
+  return bh::jmax(a, b);
+}
+template <int N>
+D<N> jmin(const D<N>& a, const D<N>& b) {
+  excess += 3 * N;
+  return bh::jmin(a, b);
+}
+template <int N>
+D<N> jmax(const D<N>& a, float c) {
+  excess += N;
+  return bh::jmax(a, c);
+}
+template <int N>
+D<N> jmin(const D<N>& a, float c) {
+  excess += N;
+  return bh::jmin(a, c);
+}
+}  // namespace cnt
+
+// K1's loop on the counting type; out: each ray's steps.
+template <bool D, bool A>
+void k1_count_ray(const float* scal, const float* inp, float* out,
+                  long long n, long long i, int max_steps) {
+  using cnt::Flop;
+  bh::ScalT<Flop> s;
+  Flop* sv[bh::N_SCAL];
+  bh::scal_slots(s, sv);
+  for (int k = 0; k < bh::N_SCAL; ++k) *sv[k] = Flop(scal[k]);
+  bh::StateT<Flop> S;
+  Flop* slot[bh::N_STATE];
+  bh::state_slots(S, slot);
+  float x[bh::N_INP], init[bh::N_STATE];
+  for (int k = 0; k < bh::N_INP; ++k) x[k] = inp[k * n + i];
+  bh::init_slots(x, scal[3], bh::ACTIVE, init);
+  for (int k = 0; k < bh::N_STATE; ++k) *slot[k] = Flop(init[k]);
+  const Flop L(x[5]);
+  for (int it = 0; it < max_steps && S.result == bh::ACTIVE; ++it)
+    bh::step_update<Flop, D, A>(S, L, s);
+  out[i] = S.steps.v;
+}
+
+// Operations over whole traces: n_tan 0 counts K1 (out: (n,) steps),
+// n_tan 1 or 2 counts K2 (out: ((1 + n_tan) 15, n) planes).
+extern "C" long long bh_count_flops(const float* scal, const float* dscal,
+                                    const float* inp, const float* dinp,
+                                    float* out, long long n, int max_steps,
+                                    int disk_on, int adaptive, int n_tan) {
+  cnt::flops = cnt::excess = 0;
+  if (n_tan == 0) {
+    for (long long i = 0; i < n; ++i) {
+      if (disk_on && adaptive) k1_count_ray<true, true>(scal, inp, out, n, i, max_steps);
+      else if (disk_on) k1_count_ray<true, false>(scal, inp, out, n, i, max_steps);
+      else if (adaptive) k1_count_ray<false, true>(scal, inp, out, n, i, max_steps);
+      else k1_count_ray<false, false>(scal, inp, out, n, i, max_steps);
+    }
+  } else {
+    fwdgrad_rays<cnt::Flop>(scal, dscal, inp, dinp, out, n, max_steps,
+                            disk_on, adaptive, n_tan);
+  }
+  return cnt::flops;
+}
+
+// The excess (see cnt) of the last bh_count_flops.
+extern "C" long long bh_count_excess() { return cnt::excess; }
 """
 
 
@@ -169,6 +339,20 @@ def host_twin(tmp_path_factory):
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
     lib.bh_trace_planes_host.restype = None
+    lib.bh_trace_planes_fwdgrad_host.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,
+    ]
+    lib.bh_trace_planes_fwdgrad_host.restype = None
+    lib.bh_count_flops.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+    ]
+    lib.bh_count_flops.restype = ctypes.c_longlong
+    lib.bh_count_excess.argtypes = []
+    lib.bh_count_excess.restype = ctypes.c_longlong
     return lib
 
 
@@ -179,13 +363,14 @@ def _twin_case(integrator):
     from blackhole_tpu_torch.render import camera as cam
 
     scene = Scene(
-        BlackHole.create(1.0, 0.9), Disk.create(6.0, 20.0),
+        BlackHole.create(1.0, 0.9, device="cpu"),
+        Disk.create(6.0, 20.0, device="cpu"),
         SimConfig.create(time_step=0.1, max_ray_distance=80.0,
-                         max_steps=250, integrator=integrator),
+                         max_steps=250, integrator=integrator, device="cpu"),
     )
     camera = Camera.create(position=(0.0, -30.0, 8.0),
                            direction=(0.0, 30.0, -8.0), up=(0.0, 0.0, 1.0),
-                           fov_deg=25.0)
+                           fov_deg=25.0, device="cpu")
     o, d = cam.generate_rays(camera, 32, 32)
     return (scene,) + trace_kernel.prepare(o, d, scene)
 
@@ -225,3 +410,119 @@ def test_cuda_source_host_twin_matches_plain(host_twin, integrator, disk):
     dc = (colors[0] - colors[1]).abs().amax(-1).numpy()
     dc = dc[agree & (res_p != trace_kernel.trace.ACTIVE)]  # MAX_STEPS
     assert dc.mean() < 2e-3 and np.percentile(dc, 99) < 3e-2
+
+
+# --- CPU twin of the multi-tangent kernel (Dual<2>) ----------------------
+
+
+def _fwdgrad_case(integrator, disk, size=16, time_step=0.5, max_steps=80,
+                  max_dist=40.0):
+    """The parity camera's rays at the wide step and a path budget of 40
+    (rays retire within 80 steps on the disk or the budget), with the
+    tangents d/dmass and d/dspin of prepare's planes."""
+    from blackhole_tpu_torch.geom.types import (
+        BlackHole, Camera, Disk, Scene, SimConfig,
+    )
+    from blackhole_tpu_torch.render import camera as cam
+
+    cpu = dict(device="cpu")
+    scene = Scene(
+        BlackHole.create(1.0, 0.9, **cpu), Disk.create(6.0, 20.0, **cpu),
+        SimConfig.create(time_step=time_step, max_ray_distance=max_dist,
+                         max_steps=max_steps, integrator=integrator, **cpu),
+        disk_enabled=disk,
+    )
+    camera = Camera.create(position=(0.0, -30.0, 8.0),
+                           direction=(0.0, 30.0, -8.0), up=(0.0, 0.0, 1.0),
+                           fov_deg=25.0, **cpu)
+    o, d = cam.generate_rays(camera, size, size)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+
+    def pre(m, a):
+        return trace_kernel.prepare(o, d, dataclasses.replace(
+            scene, blackhole=dataclasses.replace(scene.blackhole, mass=m,
+                                                 spin=a)))
+
+    m0, a0 = scene.blackhole.mass, scene.blackhole.spin
+    scal, inp = pre(m0, a0)
+    tangents = [torch.func.jvp(pre, (m0, a0), (torch.tensor(float(k == 0)),
+                                               torch.tensor(float(k == 1))))[1]
+                for k in range(2)]
+    dscal = torch.stack([t[0] for t in tangents]).float().contiguous()
+    dinp = torch.stack([t[1] for t in tangents]).contiguous()
+    return scene, scal, dscal, inp, dinp, max_steps
+
+
+@pytest.mark.parametrize("integrator,disk", [("rk4", True), ("rk4", False),
+                                             ("rkf45", True)],
+                         ids=["rk4-disk", "rk4-no-disk", "rkf45-disk"])
+def test_dual_host_twin_matches_plain(host_twin, integrator, disk):
+    """csrc's trace_ray_fwdgrad on Dual<2> (g++, no FMA) against
+    trace_planes_fwdgrad_plain.  RK4: result codes and steps equal; the
+    tangent planes within 1e-4 (|plain| + the largest |plain| of their
+    kind: lengths and positions, or unit directions and trig): the
+    Dual follows jax.jvp's product and quotient rules and torch its own,
+    a few ulp per operation (measured 2e-5).  RKF45: the distribution
+    contract on the primal, as for the forward kernel: the
+    accept/reject cascade turns an ulp of log/exp into another step
+    sequence."""
+    adaptive = integrator == "rkf45"
+    scene, scal, dscal, inp, dinp, steps = _fwdgrad_case(integrator, disk)
+    n = inp.shape[1]
+    out_p, dout_p = trace_kernel.trace_planes_fwdgrad_plain(
+        scal, dscal, inp, dinp, disk, steps, adaptive)
+    twin = torch.empty((3 * trace_kernel.N_OUT_PLANES, n))
+    host_twin.bh_trace_planes_fwdgrad_host(
+        scal.data_ptr(), dscal.data_ptr(), inp.data_ptr(), dinp.data_ptr(),
+        twin.data_ptr(), n, steps, int(disk), int(adaptive))
+    out_t, dout_t = twin[:15], twin[15:].view(2, 15, n)
+    codes = set(out_p[0].tolist())
+    if not adaptive:
+        assert 3.0 in codes and (1.0 in codes) == disk
+        np.testing.assert_array_equal(out_t[0].numpy(), out_p[0].numpy())
+        np.testing.assert_array_equal(out_t[2].numpy(), out_p[2].numpy())
+        np.testing.assert_allclose(out_t.numpy(), out_p.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        for k in range(2):
+            for planes in ([1, 3, 4, 5, 9, 14], [6, 7, 8, 10, 11, 12, 13]):
+                t, p = dout_t[k][planes].numpy(), dout_p[k][planes].numpy()
+                bound = 1e-4 * (np.abs(p) + np.abs(p).max())
+                assert np.all(np.abs(t - p) <= bound), (k, planes)
+        return
+    res_p, res_t = out_p[0].numpy(), out_t[0].numpy()
+    agree = res_p == res_t
+    assert np.sum(~agree) <= max(1, n // 500)
+    colors = [trace_kernel.postprocess(out, n, (n,), scene, None, inp[5]).color
+              for out in (out_p, out_t)]
+    dc = (colors[0] - colors[1]).abs().amax(-1).numpy()
+    dc = dc[agree & (res_p != trace_kernel.trace.ACTIVE)]
+    assert dc.mean() < 2e-3 and np.percentile(dc, 99) < 3e-2
+
+
+def test_flops_per_step_match_chip_smoke(host_twin):
+    """The floating-point operations per step of each kernel variant on
+    the bench's path, counted by running csrc's code on a counting float
+    (an FMA counts 2), match the constants chip_smoke.py computes its
+    bounds and issue shares from (within 0.5%: the count per step varies
+    with the branches a ray takes): the least the arithmetic needs, and
+    what the source executes."""
+    import chip_smoke
+
+    for integrator in ("rk4", "rkf45"):
+        adaptive = integrator == "rkf45"
+        _, scal, dscal, inp, dinp, _ = _fwdgrad_case(
+            integrator, True, size=8, time_step=0.1, max_steps=250,
+            max_dist=80.0)
+        n = inp.shape[1]
+        for n_tan in (0, 1, 2):
+            out = torch.empty(n if n_tan == 0 else (1 + n_tan) * 15 * n)
+            flops = host_twin.bh_count_flops(
+                scal.data_ptr(), dscal.data_ptr(), inp.data_ptr(),
+                dinp.data_ptr(), out.data_ptr(), n, 250, 1, int(adaptive),
+                n_tan)
+            least = flops - host_twin.bh_count_excess()
+            steps = float((out if n_tan == 0 else out.view(-1, n)[2])
+                          .double().sum())
+            refs = chip_smoke.FLOPS_PER_STEP[(n_tan, adaptive)]
+            for got, ref in zip((least / steps, flops / steps), refs):
+                assert abs(got / ref - 1.0) < 5e-3, (n_tan, adaptive, got)
