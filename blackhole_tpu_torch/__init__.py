@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of blackhole_tpu: the forward render and its
-forward-mode gradients.
+"""PyTorch/CUDA port of blackhole_tpu: the forward render (hard and soft
+shadow boundary), its forward-mode gradients and the forward-mode fit.
 
 Module paths and public names follow blackhole_tpu.  The geodesic loops
 run in hand-written CUDA kernels (csrc/) for tensors on a GPU and in

@@ -216,23 +216,26 @@ BH_DUAL BH_HD void slave_trig(BH_D& st, BH_D& ct, BH_D& sp, BH_D& cp,
 
 // The per-step tangent guard (the JAX package's sensitivity.tangent_guard
 // as its multi-tangent kernel applies it): per direction, mag is the
-// NaN-propagating max of |d| over the 21 state slots (L rides in the
-// scalars and is outside it), factor = LIMIT / max(mag, LIMIT), or 0 where
-// mag is not finite, and each slot becomes (finite ? d : 0) * factor.
+// NaN-propagating max of |d| over the state slots, the 7 tracking slots
+// included under TRACK (L rides in the scalars and is outside it), factor
+// = LIMIT / max(mag, LIMIT), or 0 where mag is not finite, and each slot
+// becomes (finite ? d : 0) * factor.
 constexpr float TANGENT_LIMIT = 1.0e6f;
 
-BH_DUAL BH_HD void guard(StateT<BH_D>& S) {
-  BH_D* slot[N_STATE];
+template <int N, typename F, bool TRACK>
+BH_HD void guard(StateT<BH_D, TRACK>& S) {
+  constexpr int NS = n_state(TRACK);
+  BH_D* slot[NS];
   state_slots(S, slot);
 BH_UNROLL
   for (int i = 0; i < N; ++i) {
     F mag = abs_(slot[0]->d[i]);
 BH_UNROLL
-    for (int k = 1; k < N_STATE; ++k) mag = jmax(mag, abs_(slot[k]->d[i]));
+    for (int k = 1; k < NS; ++k) mag = jmax(mag, abs_(slot[k]->d[i]));
     F factor = TANGENT_LIMIT / jmax(mag, TANGENT_LIMIT);
     if (!is_finite(mag)) factor = F(0.0f);
 BH_UNROLL
-    for (int k = 0; k < N_STATE; ++k) {
+    for (int k = 0; k < NS; ++k) {
       const F x = slot[k]->d[i];
       slot[k]->d[i] = (is_finite(x) ? x : F(0.0f)) * factor;
     }
@@ -244,15 +247,19 @@ BH_UNROLL
 
 // Integrate ray i with N tangent directions: the primal from scal (12,)
 // and inp (16, n), the tangents from dscal (N, 12) and dinp (N, 16, n);
-// store out ((1 + N) * 15, n), the primal's 15 planes first.  The initial
-// tangent is init_slots of the tangent planes with result 0 and h =
-// d(time_step) (the JAX package's _load_init and _zero_ctrl_tangents).
-// F: the base type (float; the tests count operations with another).
-template <int N, bool DISK_ON, bool ADAPTIVE, typename F = float>
+// store out ((1 + N) * P, n), P = n_out(TRACK), the primal's planes first.
+// The initial tangent is init_slots (and init_track_slots) of the tangent
+// planes with result 0, min_az 0 and h = d(time_step) (the JAX package's
+// _load_init and _zero_ctrl_tangents).  TRACK needs DISK_ON.  F: the base
+// type (float; the tests count operations with another).
+template <int N, bool DISK_ON, bool ADAPTIVE, bool TRACK = false,
+          typename F = float>
 BH_HD void trace_ray_fwdgrad(const float* scal, const float* dscal,
                              const float* inp, const float* dinp, float* out,
                              long long n, long long i, int max_steps) {
+  static_assert(DISK_ON || !TRACK, "tracking needs the disk");
   using D = Dual<N, F>;
+  constexpr int NS = n_state(TRACK), P = n_out(TRACK);
   ScalT<D> s;
   D* sv[N_SCAL];
   scal_slots(s, sv);
@@ -262,15 +269,16 @@ BH_UNROLL
 BH_UNROLL
     for (int j = 0; j < N; ++j) sv[k]->d[j] = F(dscal[j * N_SCAL + k]);
   }
-  StateT<D> S;
-  D* slot[N_STATE];
+  StateT<D, TRACK> S;
+  D* slot[NS];
   state_slots(S, slot);
-  float x[N_INP], init[N_STATE];
+  float x[N_INP], init[NS];
 BH_UNROLL
   for (int k = 0; k < N_INP; ++k) x[k] = inp[k * n + i];
   init_slots(x, scal[3], ACTIVE, init);
+  if constexpr (TRACK) init_track_slots(x, 1e9f, init + N_STATE);
 BH_UNROLL
-  for (int k = 0; k < N_STATE; ++k) slot[k]->v = F(init[k]);
+  for (int k = 0; k < NS; ++k) slot[k]->v = F(init[k]);
   D L(x[5]);
 BH_UNROLL
   for (int j = 0; j < N; ++j) {
@@ -278,21 +286,22 @@ BH_UNROLL
 BH_UNROLL
     for (int k = 0; k < N_INP; ++k) x[k] = dx_j[k * n + i];
     init_slots(x, dscal[j * N_SCAL + 3], 0.0f, init);
+    if constexpr (TRACK) init_track_slots(x, 0.0f, init + N_STATE);
 BH_UNROLL
-    for (int k = 0; k < N_STATE; ++k) slot[k]->d[j] = F(init[k]);
+    for (int k = 0; k < NS; ++k) slot[k]->d[j] = F(init[k]);
     L.d[j] = F(x[5]);
   }
   for (int it = 0; it < max_steps && S.result == ACTIVE; ++it) {
-    step_update<D, DISK_ON, ADAPTIVE>(S, L, s);
+    step_update<D, DISK_ON, ADAPTIVE, TRACK>(S, L, s);
     guard(S);
   }
 BH_UNROLL
-  for (int k = 0; k < N_OUT; ++k) {
-    const D& v = *slot[out_slot(k)];
+  for (int k = 0; k < P; ++k) {
+    const D& v = *slot[TRACK ? out_slot_track(k) : out_slot(k)];
     out[k * n + i] = val(v.v);
 BH_UNROLL
     for (int j = 0; j < N; ++j)
-      out[((1 + j) * N_OUT + k) * n + i] = val(v.d[j]);
+      out[((1 + j) * P + k) * n + i] = val(v.d[j]);
   }
 }
 

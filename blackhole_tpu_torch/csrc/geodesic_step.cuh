@@ -2,7 +2,9 @@
 //
 // Port of the loop body of the Pallas TPU kernels of
 // blackhole_tpu/render/pallas_kernel.py (_step_update, _rhs, _cart,
-// _load_init, _store_out), written once for the CUDA kernels
+// _load_init, _store_out), with their static `track` variant (the
+// crossing-opacity planes of the soft boundary) as the compile-time
+// parameter TRACK, written once for the CUDA kernels
 // (trace_kernel.cu, trace_fwdgrad.cu) and for a host build with a plain C++
 // compiler: BH_HD is __host__ __device__ under nvcc and plain inline
 // otherwise.  Its plain PyTorch version is
@@ -39,6 +41,13 @@ constexpr int N_SCAL = 12;
 constexpr int N_INP = 16;
 constexpr int N_OUT = 15;
 constexpr int N_STATE = 21;
+// Crossing-opacity tracking: min |z'| in the disk's band, the position
+// and the chord direction there; 7 more slots and output planes.
+constexpr int N_TRACK = 7;
+BH_HD constexpr int n_state(bool track) {
+  return N_STATE + (track ? N_TRACK : 0);
+}
+BH_HD constexpr int n_out(bool track) { return N_OUT + (track ? N_TRACK : 0); }
 
 constexpr float ACTIVE = -1.0f;
 constexpr float HORIZON = 0.0f;
@@ -76,28 +85,46 @@ struct ScalT {
 };
 using Scal = ScalT<float>;
 
-// The 21 state slots of pallas_kernel._step_update.
+// The tracking slots exist only under TRACK: the empty base adds nothing
+// to the state without it.
+template <typename T, bool TRACK>
+struct TrackSlotsT {};
 template <typename T>
-struct StateT {
+struct TrackSlotsT<T, true> {
+  T min_az, gx, gy, gz, gdx, gdy, gdz;
+};
+
+// The 21 state slots of pallas_kernel._step_update, + 7 under TRACK.
+template <typename T, bool TRACK = false>
+struct StateT : TrackSlotsT<T, TRACK> {
   T r, th, ph, pr, pth, sth, cth, sph, cph;
   T dist, steps, result, hx, hy, hz, lx, ly, lz, t, h, min_r;
 };
 using State = StateT<float>;
 
 // Pointers to the slots in the _S_* order (r .. cph, dist, steps, result,
-// hx .. lz, t, h, min_r), and the slot of each of the 15 output planes.
-template <typename T>
-BH_HD void state_slots(StateT<T>& S, T* slot[N_STATE]) {
+// hx .. lz, t, h, min_r, then min_az, gx .. gdz under TRACK), and the slot
+// of each output plane (the 15, then the 7 tracking slots in order).
+template <typename T, bool TRACK>
+BH_HD void state_slots(StateT<T, TRACK>& S, T* slot[]) {
   T* p[N_STATE] = {&S.r,    &S.th,    &S.ph,     &S.pr, &S.pth, &S.sth,
                    &S.cth,  &S.sph,   &S.cph,    &S.dist, &S.steps,
                    &S.result, &S.hx,  &S.hy,     &S.hz, &S.lx,  &S.ly,
                    &S.lz,   &S.t,     &S.h,      &S.min_r};
   for (int k = 0; k < N_STATE; ++k) slot[k] = p[k];
+  if constexpr (TRACK) {
+    T* q[N_TRACK] = {&S.min_az, &S.gx,  &S.gy, &S.gz,
+                     &S.gdx,    &S.gdy, &S.gdz};
+    for (int k = 0; k < N_TRACK; ++k) slot[N_STATE + k] = q[k];
+  }
 }
 BH_HD int out_slot(int k) {
   const int slot[N_OUT] = {11, 9, 10, 12, 13, 14, 15, 16, 17,
                            0,  5, 6,  7,  8,  20};
   return slot[k];
+}
+BH_HD int out_slot_track(int k) {
+  return k < N_OUT ? out_slot(k) : N_STATE + (k - N_OUT);
 }
 
 template <typename T>
@@ -121,6 +148,13 @@ BH_HD void init_slots(const float x[N_INP], float h0, float result0,
                             x[14], x[15], 0.0f,  0.0f,  result0, x[6], x[7],
                             x[8],  x[9],  x[10], x[11], 0.0f, h0,   x[0]};
   for (int k = 0; k < N_STATE; ++k) init[k] = v[k];
+}
+// The 7 initial tracking slots: min_az at min_az0 (1e9, or 0 for a
+// tangent), the position and direction at the ray's origin and direction.
+BH_HD void init_track_slots(const float x[N_INP], float min_az0,
+                            float init[N_TRACK]) {
+  const float v[N_TRACK] = {min_az0, x[6], x[7], x[8], x[9], x[10], x[11]};
+  for (int k = 0; k < N_TRACK; ++k) init[k] = v[k];
 }
 
 // jnp.maximum / jnp.minimum / jnp.clip: NaN in either argument wins.
@@ -230,8 +264,8 @@ BH_HD void cart(const T& r, const T& st, const T& ct, const T& sp,
   z = r * ct;
 }
 
-template <typename T, bool DISK_ON, bool ADAPTIVE>
-BH_HD void step_update(StateT<T>& S, const T& L, const ScalT<T>& s) {
+template <typename T, bool DISK_ON, bool ADAPTIVE, bool TRACK = false>
+BH_HD void step_update(StateT<T, TRACK>& S, const T& L, const ScalT<T>& s) {
   const bool active = S.result == ACTIVE;
   const T dt = s.dt;
   const T rs = 2.0f * s.M;
@@ -384,6 +418,26 @@ BH_HD void step_update(StateT<T>& S, const T& L, const ScalT<T>& s) {
       S.hz = pz;
       dist_n = S.dist + frac * step_len;
     }
+    if constexpr (TRACK) {
+      // Crossing-opacity tracking: the least sampled |z'| while radially
+      // inside the annulus (strict <), and the post-step position and
+      // chord direction there (dxc * inv_len, which the last direction
+      // already holds: a candidate advanced).
+      const T z_abs = abs_(z_new);
+      const T yp_n = s.cos_incl * cy_n + s.sin_incl * cz_n;
+      const T r_plane_n = sqrt_(cx_n * cx_n + yp_n * yp_n);
+      const bool in_band =
+          r_plane_n >= s.disk_inner && r_plane_n <= s.disk_outer;
+      if (advance && in_band && z_abs < S.min_az) {
+        S.min_az = z_abs;
+        S.gx = cx_n;
+        S.gy = cy_n;
+        S.gz = cz_n;
+        S.gdx = S.lx;
+        S.gdy = S.ly;
+        S.gdz = S.lz;
+      }
+    }
     if (ADAPTIVE) {
       // Disk-aware clamp: cap an approaching in-band ray's next step at
       // ~1.25x its estimated plane-crossing time.
@@ -441,11 +495,13 @@ BH_HD void step_update(StateT<T>& S, const T& L, const ScalT<T>& s) {
 }
 
 // Integrate ray i of the (16, n) input planes to its retirement or
-// max_steps, and store its 15 output planes (K1).
-template <bool DISK_ON, bool ADAPTIVE>
+// max_steps, and store its n_out(TRACK) output planes (K1).  TRACK needs
+// DISK_ON: the tracking updates live in the disk block.
+template <bool DISK_ON, bool ADAPTIVE, bool TRACK = false>
 BH_HD void trace_ray(const float* inp, float* out, long long n, long long i,
                      const Scal& s, int max_steps) {
-  State S;
+  static_assert(DISK_ON || !TRACK, "tracking needs the disk");
+  StateT<float, TRACK> S;
   S.r = inp[0 * n + i];
   S.th = inp[1 * n + i];
   S.ph = inp[2 * n + i];
@@ -468,8 +524,17 @@ BH_HD void trace_ray(const float* inp, float* out, long long n, long long i,
   S.t = 0.0f;
   S.h = s.dt;
   S.min_r = S.r;
+  if constexpr (TRACK) {
+    S.min_az = 1e9f;
+    S.gx = S.hx;
+    S.gy = S.hy;
+    S.gz = S.hz;
+    S.gdx = S.lx;
+    S.gdy = S.ly;
+    S.gdz = S.lz;
+  }
   for (int it = 0; it < max_steps && S.result == ACTIVE; ++it)
-    step_update<float, DISK_ON, ADAPTIVE>(S, L, s);
+    step_update<float, DISK_ON, ADAPTIVE, TRACK>(S, L, s);
   out[0 * n + i] = S.result;
   out[1 * n + i] = S.dist;
   out[2 * n + i] = S.steps;
@@ -485,6 +550,15 @@ BH_HD void trace_ray(const float* inp, float* out, long long n, long long i,
   out[12 * n + i] = S.sph;
   out[13 * n + i] = S.cph;
   out[14 * n + i] = S.min_r;
+  if constexpr (TRACK) {
+    out[15 * n + i] = S.min_az;
+    out[16 * n + i] = S.gx;
+    out[17 * n + i] = S.gy;
+    out[18 * n + i] = S.gz;
+    out[19 * n + i] = S.gdx;
+    out[20 * n + i] = S.gdy;
+    out[21 * n + i] = S.gdz;
+  }
 }
 
 }  // namespace bh

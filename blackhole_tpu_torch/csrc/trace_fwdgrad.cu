@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel _make_kernel_jvp_multi of
 // blackhole_tpu/render/pallas_kernel.py (launched by _get_multi_core), and
-// with one tangent _make_kernel_jvp (launched by _get_core._call_jvp):
+// with one tangent _make_kernel_jvp (launched by _get_core._call_jvp),
+// each with its `track` variant (TRACK: the 7 crossing-opacity slots and
+// their tangents, disk on only, under the same guard):
 // every ray is integrated once, as in the forward kernel, and N tangent
 // directions ride beside the primal through the same steps.  The step is
 // geodesic_step.cuh's template on Dual<N> (dual.cuh), so each tangent
@@ -39,7 +41,7 @@ namespace {
 
 constexpr int kBlock = 128;
 
-template <int N, bool DISK_ON, bool ADAPTIVE>
+template <int N, bool DISK_ON, bool ADAPTIVE, bool TRACK>
 __global__ void __launch_bounds__(kBlock)
     fwdgrad_kernel(const float* __restrict__ scal,
                    const float* __restrict__ dscal,
@@ -48,30 +50,35 @@ __global__ void __launch_bounds__(kBlock)
                    long long n, int max_steps) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  bh::trace_ray_fwdgrad<N, DISK_ON, ADAPTIVE>(scal, dscal, inp, dinp, out, n,
-                                              i, max_steps);
+  bh::trace_ray_fwdgrad<N, DISK_ON, ADAPTIVE, TRACK>(scal, dscal, inp, dinp,
+                                                     out, n, i, max_steps);
 }
 
 template <int N>
 void launch(const float* scal, const float* dscal, const float* inp,
             const float* dinp, float* out, long long n, int max_steps,
-            int disk_on, int adaptive, cudaStream_t stream) {
+            int disk_on, int adaptive, int track, cudaStream_t stream) {
   const unsigned grid = (unsigned)((n + kBlock - 1) / kBlock);
-  if (disk_on) {
+#define BH_LAUNCH(D, A, T)                                 \
+  fwdgrad_kernel<N, D, A, T><<<grid, kBlock, 0, stream>>>( \
+      scal, dscal, inp, dinp, out, n, max_steps)
+  if (track) {
     if (adaptive)
-      fwdgrad_kernel<N, true, true><<<grid, kBlock, 0, stream>>>(
-          scal, dscal, inp, dinp, out, n, max_steps);
+      BH_LAUNCH(true, true, true);
     else
-      fwdgrad_kernel<N, true, false><<<grid, kBlock, 0, stream>>>(
-          scal, dscal, inp, dinp, out, n, max_steps);
+      BH_LAUNCH(true, false, true);
+  } else if (disk_on) {
+    if (adaptive)
+      BH_LAUNCH(true, true, false);
+    else
+      BH_LAUNCH(true, false, false);
   } else {
     if (adaptive)
-      fwdgrad_kernel<N, false, true><<<grid, kBlock, 0, stream>>>(
-          scal, dscal, inp, dinp, out, n, max_steps);
+      BH_LAUNCH(false, true, false);
     else
-      fwdgrad_kernel<N, false, false><<<grid, kBlock, 0, stream>>>(
-          scal, dscal, inp, dinp, out, n, max_steps);
+      BH_LAUNCH(false, false, false);
   }
+#undef BH_LAUNCH
 }
 
 }  // namespace
@@ -79,22 +86,24 @@ void launch(const float* scal, const float* dscal, const float* inp,
 extern "C" {
 
 // scal (12,), dscal (n_tan, 12), inp (16, n), dinp (n_tan, 16, n) and out
-// ((1 + n_tan) * 15, n) are float32 device pointers; n_tan is 1 or 2.
-// Returns cudaGetLastError() after the launch (0 on success).
+// ((1 + n_tan) * P, n), P = 15 (22 with track), are float32 device
+// pointers; n_tan is 1 or 2, and track needs disk_on.  Returns
+// cudaGetLastError() after the launch (0 on success).
 int bh_trace_planes_fwdgrad(const float* scal, const float* dscal,
                             const float* inp, const float* dinp, float* out,
                             long long n, int n_tan, int max_steps,
-                            int disk_on, int adaptive, void* stream) {
+                            int disk_on, int adaptive, int track,
+                            void* stream) {
+  if ((n_tan != 1 && n_tan != 2) || (track && !disk_on))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_tan == 1)
     launch<1>(scal, dscal, inp, dinp, out, n, max_steps, disk_on, adaptive,
-              st);
-  else if (n_tan == 2)
-    launch<2>(scal, dscal, inp, dinp, out, n, max_steps, disk_on, adaptive,
-              st);
+              track, st);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch<2>(scal, dscal, inp, dinp, out, n, max_steps, disk_on, adaptive,
+              track, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,13 @@
 // Forward geodesic kernel for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel _make_kernel of
-// blackhole_tpu/render/pallas_kernel.py (launched by _get_core._call_plain):
-// every ray is integrated from its null initial state to retirement (disk
-// hit, capture, path budget, escape) or max_steps, RK4 on the radius
-// schedule or RKF45 with a per-ray step and accept/reject, and its hit
-// record is written once.
+// blackhole_tpu/render/pallas_kernel.py (launched by _get_core._call_plain),
+// with its static variants disk on/off x RK4/RKF45 x track (track: the
+// crossing-opacity planes of the soft boundary, disk on only): every ray
+// is integrated from its null initial state to retirement (disk hit,
+// capture, path budget, escape) or max_steps, RK4 on the radius schedule
+// or RKF45 with a per-ray step and accept/reject, and its hit record is
+// written once (15 planes, 22 under track).
 //
 // What bounds it on the card: FP32 issue and register pressure, not bytes.
 // A ray reads 16 floats and writes 15 against hundreds of steps of ~650
@@ -29,21 +31,21 @@ namespace {
 
 constexpr int kBlock = 128;
 
-template <bool DISK_ON, bool ADAPTIVE>
+template <bool DISK_ON, bool ADAPTIVE, bool TRACK>
 __global__ void __launch_bounds__(kBlock)
     trace_kernel(const float* __restrict__ scal, const float* __restrict__ inp,
                  float* __restrict__ out, long long n, int max_steps) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const bh::Scal s = bh::load_scal(scal);
-  bh::trace_ray<DISK_ON, ADAPTIVE>(inp, out, n, i, s, max_steps);
+  bh::trace_ray<DISK_ON, ADAPTIVE, TRACK>(inp, out, n, i, s, max_steps);
 }
 
-template <bool DISK_ON, bool ADAPTIVE>
+template <bool DISK_ON, bool ADAPTIVE, bool TRACK = false>
 void launch(const float* scal, const float* inp, float* out, long long n,
             int max_steps, cudaStream_t stream) {
   const long long grid = (n + kBlock - 1) / kBlock;
-  trace_kernel<DISK_ON, ADAPTIVE>
+  trace_kernel<DISK_ON, ADAPTIVE, TRACK>
       <<<(unsigned)grid, kBlock, 0, stream>>>(scal, inp, out, n, max_steps);
 }
 
@@ -51,14 +53,21 @@ void launch(const float* scal, const float* inp, float* out, long long n,
 
 extern "C" {
 
-// scal (12,), inp (16, n) and out (15, n) are float32 device pointers.
-// Returns cudaGetLastError() after the launch (0 on success).
+// scal (12,), inp (16, n) and out (15, n; 22 with track) are float32
+// device pointers; track needs disk_on.  Returns cudaGetLastError() after
+// the launch (0 on success).
 int bh_trace_planes(const float* scal, const float* inp, float* out,
                     long long n, int max_steps, int disk_on, int adaptive,
-                    void* stream) {
+                    int track, void* stream) {
+  if (track && !disk_on) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (disk_on) {
+  if (track) {
+    if (adaptive)
+      launch<true, true, true>(scal, inp, out, n, max_steps, st);
+    else
+      launch<true, false, true>(scal, inp, out, n, max_steps, st);
+  } else if (disk_on) {
     if (adaptive)
       launch<true, true>(scal, inp, out, n, max_steps, st);
     else

@@ -10,6 +10,8 @@ only for a CUDA tensor, so the CPU path never needs nvcc.
 
   trace:   csrc/trace_kernel.cu  (K1, bh_trace_planes)
   fwdgrad: csrc/trace_fwdgrad.cu (K2, bh_trace_planes_fwdgrad)
+Each library holds every static variant of its kernel, the tracking ones
+(track: the soft boundary's crossing-opacity planes) included.
 """
 
 from __future__ import annotations
@@ -103,13 +105,13 @@ def load(name: str) -> ctypes.CDLL:
     with its C interface declared."""
     lib = ctypes.CDLL(str(build()[name]))
     if name == "trace":
-        lib.bh_trace_planes.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _P]
+        lib.bh_trace_planes.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _I, _P]
         lib.bh_trace_planes.restype = _I
         lib.bh_error_string.argtypes = [_I]
         lib.bh_error_string.restype = ctypes.c_char_p
     else:
         lib.bh_trace_planes_fwdgrad.argtypes = [
-            _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P,
         ]
         lib.bh_trace_planes_fwdgrad.restype = _I
         lib.bh_fwdgrad_error_string.argtypes = [_I]
@@ -118,13 +120,14 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def trace_planes(scal, inp, out, n: int, max_steps: int, disk_on: bool,
-                 adaptive: bool, stream: int) -> None:
-    """Launch K1 on `stream` (checked tensors, see
-    render.trace_kernel.trace_planes); raise if the launch fails."""
+                 adaptive: bool, track: bool, stream: int) -> None:
+    """Launch K1 (its tracking variant under track) on `stream` (checked
+    tensors, see render.trace_kernel.trace_planes); raise if the launch
+    fails."""
     lib = load("trace")
     rc = lib.bh_trace_planes(
         scal.data_ptr(), inp.data_ptr(), out.data_ptr(), n, int(max_steps),
-        int(disk_on), int(adaptive), stream,
+        int(disk_on), int(adaptive), int(track), stream,
     )
     if rc != 0:
         msg = lib.bh_error_string(rc).decode()
@@ -133,15 +136,16 @@ def trace_planes(scal, inp, out, n: int, max_steps: int, disk_on: bool,
 
 def trace_planes_fwdgrad(scal, dscal, inp, dinp, out, n: int, n_tan: int,
                          max_steps: int, disk_on: bool, adaptive: bool,
-                         stream: int) -> None:
-    """Launch K2 with n_tan (1 or 2) tangents on `stream` (checked
-    contiguous tensors, see render.trace_kernel.trace_planes_fwdgrad);
-    raise if the launch fails."""
+                         track: bool, stream: int) -> None:
+    """Launch K2 with n_tan (1 or 2) tangents (its tracking variant under
+    track) on `stream` (checked contiguous tensors, see
+    render.trace_kernel.trace_planes_fwdgrad); raise if the launch
+    fails."""
     lib = load("fwdgrad")
     rc = lib.bh_trace_planes_fwdgrad(
         scal.data_ptr(), dscal.data_ptr(), inp.data_ptr(), dinp.data_ptr(),
         out.data_ptr(), n, int(n_tan), int(max_steps), int(disk_on),
-        int(adaptive), stream,
+        int(adaptive), int(track), stream,
     )
     if rc != 0:
         msg = lib.bh_fwdgrad_error_string(rc).decode()

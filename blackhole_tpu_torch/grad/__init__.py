@@ -9,8 +9,11 @@
 | few params, opaque   | fast_grad.value_and_grad_fwd: one          |
 | loss                 | torch.func.jvp per parameter, each through |
 |                      | K2 with one tangent (K3)                   |
+| fitting an image     | inverse.fit_forward: Adam, one             |
+|                      | render_value_and_grad pass per step        |
 +----------------------+--------------------------------------------+
 
-Reverse mode (the JAX package's diff_trace, bucketed, inverse) is not
-ported yet: a .backward() through the geodesic kernel raises.
+Reverse mode (the JAX package's diff_trace, bucketed, and inverse's
+image_loss, make_train_step, fit) is not ported yet: a .backward()
+through the geodesic kernel raises.
 """

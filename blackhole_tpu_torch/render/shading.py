@@ -213,3 +213,18 @@ def shade_disk_hit(hit_pos, photon_dir, blackhole, disk, config, L=None):
         enable_beaming=config.enable_beaming,
     )
     return rgb, temp, doppler, grav
+
+
+def disk_edge_window(hit_pos, disk, width):
+    """Soft opacity window at the annulus edges: sigmoid ramps of the
+    inclined in-plane radius, offset by -3 so the hard in/out flip lands
+    at ~5% opacity, 1 in the interior.  trace.finalize composites disk
+    emission over the sky with it under SimConfig.shadow_softness, so a
+    ray flipping in or out of the disk changes colour continuously."""
+    incl = disk.inclination
+    x = hit_pos[..., 0]
+    yp = torch.cos(incl) * hit_pos[..., 1] + torch.sin(incl) * hit_pos[..., 2]
+    r_plane = torch.sqrt(x * x + yp * yp)
+    return torch.sigmoid(
+        (r_plane - disk.inner_radius) / width - 3.0
+    ) * torch.sigmoid((disk.outer_radius - r_plane) / width - 3.0)

@@ -2,9 +2,10 @@
 
 PyTorch counterpart of the parts of blackhole_tpu.render.trace that the
 geodesic kernel's path calls: the ACTIVE sentinel, the RKF45 error
-width, the TraceCarry record, the disk-plane and cartesian helpers, and
-finalize (hard shadow edge only: shadow_softness == 0).  The XLA-engine
-counterpart (trace_step, make_step_fn, trace_rays) is not ported yet.
+width, the TraceCarry record, the disk-plane and cartesian helpers, the
+analytic capture margin and finalize with the hard shadow edge and the
+soft one (shadow_softness > 0).  The XLA-engine counterpart
+(trace_step, make_step_fn, trace_rays) is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from blackhole_tpu_torch.constants import EPSILON
+from blackhole_tpu_torch.geom import coords
 from blackhole_tpu_torch.geom.types import Hit, RayResult, Scene
 from blackhole_tpu_torch.metrics import derived
 from blackhole_tpu_torch.render import geodesic, shading
@@ -35,25 +37,22 @@ class TraceCarry(NamedTuple):
     last_dir: torch.Tensor  # (N, 3) unit direction of the last chord
     min_r: torch.Tensor  # (N,) closest BL radial approach
     iter: int  # global iteration counter
+    # Crossing-opacity tracking (None unless track_crossing): the
+    # closest sampled approach |z'| to the disk plane while radially
+    # inside the annulus, and the position and chord direction there.
+    min_az: torch.Tensor | None = None  # (N,)
+    gpos: torch.Tensor | None = None  # (N, 3)
+    gdir: torch.Tensor | None = None  # (N, 3)
 
 
 def track_crossing(scene: Scene) -> bool:
     """Carry the crossing-opacity planes?  Only for soft-boundary
-    rendering with the disk on (not ported yet)."""
+    rendering with the disk on."""
     return bool(
         scene.disk_enabled
         and scene.config.show_disk
         and float(scene.config.shadow_softness) > 0.0
     )
-
-
-def check_hard_edge(scene: Scene) -> None:
-    """Raise for the soft shadow boundary, which this port lacks."""
-    if float(scene.config.shadow_softness) > 0.0:
-        raise NotImplementedError(
-            "shadow_softness > 0 (capture margin, crossing tracking) is "
-            "not ported yet"
-        )
 
 
 def _disk_plane_radius(cart, incl):
@@ -74,9 +73,33 @@ def aug_to_cartesian(y, a):
     return torch.stack([rho * cp, rho * sp, r * ct], dim=-1)
 
 
-def finalize(carry: TraceCarry, scene: Scene) -> Hit:
-    """Convert the final carry into a shaded Hit with the hard shadow
-    edge (the soft branches, shadow_softness > 0, are not ported)."""
+def compute_capture_margin(origins, directions, scene: Scene):
+    """(margin, valid) of the rays for the analytic soft shadow boundary.
+
+    margin: derived.capture_margin_length from the conserved (L, Qc),
+    positive = captured, differentiable in the rays and the scene.
+    valid: the ray starts ingoing with C = Qc + (L - a)^2 > EPSILON; a
+    primal-only predicate (finalize falls back to min_r elsewhere)."""
+    bh = scene.blackhole
+    y0, _, L, Qc = geodesic.init_null_rays_aug(
+        origins, coords.normalize(directions), bh.mass, bh.a, bh.charge
+    )
+    margin = derived.capture_margin_length(L, Qc, bh.mass, bh.a, bh.charge)
+    C = Qc + (L - bh.a) * (L - bh.a)
+    valid = (y0[..., geodesic.IPR] < 0.0) & (C > EPSILON)
+    return margin, valid
+
+
+def finalize(carry: TraceCarry, scene: Scene, margin=None) -> Hit:
+    """Convert the final carry into a shaded Hit.
+
+    Under shadow_softness > 0 every visibility flip is softened: the disk
+    emission is composited over the sky by the annulus window, over
+    non-disk rays by the crossing opacity (when the carry tracks it), and
+    the colour is scaled by a survival sigmoid of the capture margin
+    (margin = (margin, valid) from compute_capture_margin) or of min_r.
+    With a margin given the hard trapped-ray test is switched off for
+    every ray, as in the JAX package (a known fault of the reference)."""
     bh = scene.blackhole
     cfg = scene.config
     result = torch.where(
@@ -99,11 +122,50 @@ def finalize(carry: TraceCarry, scene: Scene) -> Hit:
     # Budget-exhausted rays that ended inside ~4M are trapped: paint them
     # black like captures instead of sky.
     is_trapped = (result == RayResult.MAX_STEPS) & (r_term < 4.0 * bh.mass)
+    if margin is not None:
+        is_trapped = torch.zeros_like(is_trapped)
     dark = (is_horizon | is_trapped)[..., None]
+    soft = float(cfg.shadow_softness)
+    if soft > 0.0:
+        # Soft disk edges: emission over the straight-on sky by the
+        # annulus window.
+        window = shading.disk_edge_window(
+            carry.hit_pos, scene.disk, soft * bh.mass
+        )[..., None]
+        disk_rgb = disk_rgb * window + sky_rgb * (1.0 - window)
     color = torch.where(
         is_disk[..., None], disk_rgb,
         torch.where(dark, torch.zeros_like(sky_rgb), sky_rgb),
     )
+    if track_crossing(scene) and carry.min_az is not None:
+        # Crossing opacity: disk emission at the closest in-band approach
+        # to the plane, over every non-disk ray, by alpha(min_az) times
+        # the annulus window (alpha -> sigmoid(3) at a graze).
+        w = soft * bh.mass
+        g_rgb, _, _, _ = shading.shade_disk_hit(
+            carry.gpos, carry.gdir, bh, scene.disk, cfg, L=carry.L
+        )
+        window_g = shading.disk_edge_window(carry.gpos, scene.disk, w)
+        alpha = torch.sigmoid(3.0 - carry.min_az / w)
+        cw = (alpha * window_g)[..., None]
+        color = torch.where(
+            is_disk[..., None], color, color * (1.0 - cw) + g_rgb * cw
+        )
+    if soft > 0.0:
+        # Survival of the shadow boundary: sigmoid(x - 3) of the ray's
+        # height above the (prograde / retrograde by the sign of L)
+        # photon orbit in units of softness * M; the analytic margin where
+        # it is valid and the ray is not a disk hit, min_r elsewhere.
+        sgn = torch.where(carry.L.detach() * bh.a >= 0.0, 1.0, -1.0)
+        r_ph = derived.kerr_photon_orbit_radius(bh.mass, bh.spin, sgn)
+        x_minr = (carry.min_r - r_ph) / (soft * bh.mass)
+        if margin is not None:
+            m_arr, m_valid = margin
+            x_analytic = -m_arr / (soft * bh.mass)
+            x = torch.where(m_valid & ~is_disk, x_analytic, x_minr)
+        else:
+            x = x_minr
+        color = color * torch.sigmoid(x - 3.0)[..., None]
     one = torch.ones_like(tdil)
 
     # Slant optical depth of Sigma(r) = density_scale (r_in/r)^(3/5)

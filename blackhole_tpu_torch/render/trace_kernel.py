@@ -20,12 +20,14 @@ Layouts (structure of arrays, one column per ray):
     origin (3), initial direction (3), sin/cos theta0, sin/cos phi0.
   scal (12,): M, a, Q, time_step, max_ray_distance, r_capture,
     disk_inner, disk_outer, sin_incl, cos_incl, tol, r_shell_min.
-  out (15, n): result, dist, steps, hit xyz, last-dir xyz, final r,
-    sin/cos th, sin/cos ph, min_r.
+  out (P, n): result, dist, steps, hit xyz, last-dir xyz, final r,
+    sin/cos th, sin/cos ph, min_r; P = 15, or 22 with crossing-opacity
+    tracking (track, the soft boundary with the disk on: + min |z'| in
+    the disk's band, the position and the chord direction there).
 
 Tangent layouts: dscals (n_tan, 12) and dinps (n_tan, 16, n) carry one
 tangent direction per row (dL rides in plane 5 of dinp); the tangent
-planes come back as douts (n_tan, 15, n).
+planes come back as douts (n_tan, P, n).
 
 Forward mode only: reverse mode through the planes pass raises
 NotImplementedError (at trace_planes when called directly with a tensor
@@ -45,21 +47,34 @@ from blackhole_tpu_torch.integrate import sensitivity
 from blackhole_tpu_torch.integrate import steppers as sp_mod
 from blackhole_tpu_torch.metrics import derived
 from blackhole_tpu_torch.render import geodesic, trace
+from blackhole_tpu_torch.tangent_rules import jabs, jclip, jmax, jmin
 
 N_SCAL = 12
 N_INP_PLANES = 16
 N_OUT_PLANES = 15
+N_TRACK = 7  # tracking slots and planes
 
-# State-tuple slots of step_update (the JAX package's _S_* order).
+# State-tuple slots of step_update (the JAX package's _S_* order); the
+# tracking slots follow under track.
 (S_R, S_TH, S_PH, S_PR, S_PTH, S_ST, S_CT, S_SP, S_CP,
  S_DIST, S_STEPS, S_RESULT, S_HX, S_HY, S_HZ,
- S_LX, S_LY, S_LZ, S_T, S_H, S_MINR) = range(21)
+ S_LX, S_LY, S_LZ, S_T, S_H, S_MINR,
+ S_MINAZ, S_GX, S_GY, S_GZ, S_GDX, S_GDY, S_GDZ) = range(28)
 N_STATE = 21
 
+
+def n_out(track: bool) -> int:
+    """Output planes per ray set: 15, or 22 with tracking."""
+    return N_OUT_PLANES + (N_TRACK if track else 0)
+
+
 # Kernel launches since the last reset: trace_planes adds one per K1
-# launch, trace_planes_fwdgrad one per K2 launch.
+# launch, trace_planes_fwdgrad one per K2 launch; the track_ counts add
+# one more per launch of the tracking variant.
 launches = 0
 fwdgrad_launches = 0
+track_launches = 0
+fwdgrad_track_launches = 0
 
 # Tangent directions one K2 launch carries (the kernel is instantiated
 # for 1 and 2); more tangents take several passes, each recomputing the
@@ -67,83 +82,6 @@ fwdgrad_launches = 0
 MAX_TANGENTS_PER_PASS = 2
 
 _ACTIVE = float(trace.ACTIVE)
-
-
-# --- max, min, clip and abs with the JAX package's tangent rules ---------
-#
-# The step's primal is the same with torch.clamp/maximum/abs, but their
-# forward-mode derivatives differ from jax.jvp's where the JAX package
-# relies on them: jnp.maximum/minimum give 0.5 (da + db) at a tie and a
-# zero tangent where the result is NaN (torch: db + w (da - db), which
-# rounds and keeps db at NaN), jnp.clip is minimum(hi, maximum(lo, x))
-# (torch.clamp passes the whole tangent at a bound), and jnp.abs has
-# tangent +dx at 0 (torch.abs: 0).  A bound given as a Python float is
-# a constant without tangent.
-
-
-class _MaxMin(torch.autograd.Function):
-    @staticmethod
-    def forward(a, b, is_max):
-        if isinstance(b, torch.Tensor):
-            return torch.maximum(a, b) if is_max else torch.minimum(a, b)
-        return torch.clamp(a, min=b) if is_max else torch.clamp(a, max=b)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        a, b, _ = inputs
-        ctx.b = None if isinstance(b, torch.Tensor) else b
-        if ctx.b is None:
-            ctx.save_for_forward(a, output, b)
-        else:
-            ctx.save_for_forward(a, output)
-
-    @staticmethod
-    def jvp(ctx, da, db, _):
-        a, r, *rest = ctx.saved_tensors
-        b = rest[0] if rest else ctx.b
-        ea, eb = a == r, b == r
-        out = None
-        if da is not None:
-            out = da * torch.where(ea, torch.where(eb, 0.5, 1.0), 0.0)
-        if db is not None:
-            t = db * torch.where(eb, torch.where(ea, 0.5, 1.0), 0.0)
-            out = t if out is None else out + t
-        return out
-
-
-class _Abs(torch.autograd.Function):
-    @staticmethod
-    def forward(x):
-        return torch.abs(x)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_forward(inputs[0])
-
-    @staticmethod
-    def jvp(ctx, dx):
-        (x,) = ctx.saved_tensors
-        return torch.where(x >= 0.0, dx, -dx)
-
-
-def _max(a, b):
-    """jnp.maximum: NaN wins; tangent rule as in jax.jvp."""
-    return _MaxMin.apply(a, b, True)
-
-
-def _min(a, b):
-    """jnp.minimum: NaN wins; tangent rule as in jax.jvp."""
-    return _MaxMin.apply(a, b, False)
-
-
-def _clip(x, lo, hi):
-    """jnp.clip: minimum(hi, maximum(lo, x))."""
-    return _min(_max(x, lo), hi)
-
-
-def _abs(x):
-    """jnp.abs: tangent +dx at 0."""
-    return _Abs.apply(x)
 
 
 class _SlaveTrig(torch.autograd.Function):
@@ -178,7 +116,7 @@ def _rhs(r, pr, pth, st, ct, sp, cp, L, M, a, Q):
     """Closed-form Kerr-Newman geodesic RHS on the trig-augmented state
     (E = 1), transcendental-free.  Returns
     (dr, dth, dph, dpr, dpth, dt, dst, dct, dsp, dcp)."""
-    st2 = _max(st * st, EPSILON)
+    st2 = jmax(st * st, EPSILON)
     a2 = a * a
     sigma = r * r + a2 * ct * ct
     delta = r * r - 2.0 * M * r + a2 + Q * Q
@@ -264,23 +202,27 @@ def _advance(c, *terms):
 
 
 def step_update(state, scal, disk_enabled: bool, adaptive: bool = False,
-                slave: bool = False):
+                track: bool = False, slave: bool = False):
     """One masked integration step on tuples of (n,) tensors — the plain
     version of csrc/geodesic_step.cuh's step_update, mirroring the JAX
-    package's pallas_kernel._step_update (no tracking).  Its max, min,
-    clip and abs follow jax.jvp's tangent rules, so torch.func.jvp of it
-    is the tangent recurrence of K2; slave=True slaves the trig tangents
+    package's pallas_kernel._step_update.  Its max, min, clip and abs
+    follow jax.jvp's tangent rules, so torch.func.jvp of it is the
+    tangent recurrence of K2; slave=True slaves the trig tangents
     (slave_trig) after the renormalisation, as the JAX package's
     differentiated kernels do.
 
-    state: the 21 S_* slots; scal: (M, a, Q, dt, max_dist, r_capture,
+    state: the 21 S_* slots, + the 7 tracking slots under track (the
+    closest in-band approach to the disk plane, updated with the disk
+    on); scal: (M, a, Q, dt, max_dist, r_capture,
     disk_inner, disk_outer, sin_incl, cos_incl, tol, r_shell_min, L),
     L per ray, the rest 0-d.  adaptive=False: RK4 on the radius
     schedule; True: embedded Fehlberg 4(5) with per-ray h and
     accept/reject."""
     (r, th, ph, pr, pth, sth, cth, sph, cph,
      dist, steps, result, hx, hy, hz, lx, ly, lz,
-     tt, h_carry, min_r) = state
+     tt, h_carry, min_r) = state[:N_STATE]
+    if track:
+        (min_az, gx, gy, gz, gdx, gdy, gdz) = state[N_STATE:]
     (M, a, Q, dt, max_dist, r_capture, disk_inner, disk_outer,
      sin_incl, cos_incl, tol, r_shell_min, L) = scal
     active = result == _ACTIVE
@@ -289,9 +231,9 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False,
     if adaptive:
         h = h_carry
     else:
-        h = dt * _clip(r / (7.5 * rs), 0.05, 20.0)
-        h = _min(h, 0.5 * (r - r_capture) + 1e-3 * dt)
-        h = _max(h, 1e-4 * dt)
+        h = dt * jclip(r / (7.5 * rs), 0.05, 20.0)
+        h = jmin(h, 0.5 * (r - r_capture) + 1e-3 * dt)
+        h = jmax(h, 1e-4 * dt)
 
     cur = (r, th, ph, pr, pth, tt, sth, cth, sph, cph)
 
@@ -331,20 +273,20 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False,
         # max(|y|, |y5|) floored at 1e-12.
         err = None
         for c in range(trace.N_ERR_COMPONENTS):
-            scale = _max(_max(_abs(cur[c]), _abs(new[c])), 1e-12)
-            e = _abs(new[c] - y4[c]) / scale
-            err = e if err is None else _max(err, e)
+            scale = jmax(jmax(jabs(cur[c]), jabs(new[c])), 1e-12)
+            e = jabs(new[c] - y4[c]) / scale
+            err = e if err is None else jmax(err, e)
         accepted = err <= tol
         # Step-size controller with the trace clamps.
-        log_ratio = torch.log(_max(err / tol, 1e-30))
+        log_ratio = torch.log(jmax(err / tol, 1e-30))
         scale_ok = sp.SAFETY * torch.exp(-0.2 * log_ratio)
         scale_bad = sp.SAFETY * torch.exp(-0.25 * log_ratio)
         sc = torch.where(accepted, scale_ok, scale_bad)
         sc = torch.where(err / tol <= 0.0, sp.MAX_SCALE, sc)
-        h_next = h * _clip(sc, sp.MIN_SCALE, sp.MAX_SCALE)
-        h_next = _clip(h_next, 1e-4 * dt, 50.0 * dt)
-        h_next = _min(h_next, 0.5 * (r - r_capture) + 1e-3 * dt)
-        h_next = _max(h_next, 1e-5 * dt)
+        h_next = h * jclip(sc, sp.MIN_SCALE, sp.MAX_SCALE)
+        h_next = jclip(h_next, 1e-4 * dt, 50.0 * dt)
+        h_next = jmin(h_next, 0.5 * (r - r_capture) + 1e-3 * dt)
+        h_next = jmax(h_next, 1e-5 * dt)
 
     (r_t, th_t, ph_t, pr_t, pth_t, t_t, sth_t, cth_t, sph_t, cph_t) = new
     finite = (
@@ -365,10 +307,10 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False,
     h_new = torch.where(active, h_next, h_carry)
 
     # Unit-circle renormalisation of the trig pairs.
-    n_th = torch.rsqrt(_max(sth_n * sth_n + cth_n * cth_n, 0.25))
+    n_th = torch.rsqrt(jmax(sth_n * sth_n + cth_n * cth_n, 0.25))
     sth_n = sth_n * n_th
     cth_n = cth_n * n_th
-    n_ph = torch.rsqrt(_max(sph_n * sph_n + cph_n * cph_n, 0.25))
+    n_ph = torch.rsqrt(jmax(sph_n * sph_n + cph_n * cph_n, 0.25))
     sph_n = sph_n * n_ph
     cph_n = cph_n * n_ph
     if slave:
@@ -381,7 +323,7 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False,
     dyc = cy_n - cy
     dzc = cz_n - cz
     step_len = torch.sqrt(dxc * dxc + dyc * dyc + dzc * dzc + 1e-24)
-    inv_len = 1.0 / _max(step_len, EPSILON)
+    inv_len = 1.0 / jmax(step_len, EPSILON)
     dist_n = dist + torch.where(advance, step_len, 0.0)
     lx_n = torch.where(advance, dxc * inv_len, lx)
     ly_n = torch.where(advance, dyc * inv_len, ly)
@@ -406,17 +348,33 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False,
         hy = torch.where(disk_hit, py, hy)
         hz = torch.where(disk_hit, pz, hz)
         dist_n = torch.where(disk_hit, dist + frac * step_len, dist_n)
+        if track:
+            # Crossing-opacity tracking: the least sampled |z'| while
+            # radially inside the annulus, and the position and chord
+            # direction there.
+            z_abs = jabs(z_new)
+            yp_n = cos_incl * cy_n + sin_incl * cz_n
+            r_plane_n = torch.sqrt(cx_n * cx_n + yp_n * yp_n)
+            in_band = (r_plane_n >= disk_inner) & (r_plane_n <= disk_outer)
+            cand = advance & in_band & (z_abs < min_az)
+            min_az = torch.where(cand, z_abs, min_az)
+            gx = torch.where(cand, cx_n, gx)
+            gy = torch.where(cand, cy_n, gy)
+            gz = torch.where(cand, cz_n, gz)
+            gdx = torch.where(cand, dxc * inv_len, gdx)
+            gdy = torch.where(cand, dyc * inv_len, gdy)
+            gdz = torch.where(cand, dzc * inv_len, gdz)
         if adaptive:
             # Disk-aware clamp: an approaching ray inside the disk's
             # radial band caps its next step at ~1.25x the estimated
             # plane-crossing time.
             dz = z_new - z_prev
             approaching = z_new * dz < 0.0
-            lam_cross = h * _abs(z_new) / _max(_abs(dz), EPSILON)
+            lam_cross = h * jabs(z_new) / jmax(jabs(dz), EPSILON)
             near = r_n < 1.5 * disk_outer
-            h_cap = _max(1.25 * lam_cross, 0.05 * dt)
+            h_cap = jmax(1.25 * lam_cross, 0.05 * dt)
             h_new = torch.where(active & approaching & near,
-                                _min(h_new, h_cap), h_new)
+                                jmin(h_new, h_cap), h_new)
 
     still = result == _ACTIVE
 
@@ -447,30 +405,41 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False,
     hz = torch.where(escaped, cz_n, hz)
 
     steps_n = steps + active.to(steps.dtype)
-    min_r_n = torch.where(advance, _min(min_r, r_n), min_r)
-    return (r_n, th_n, ph_n, pr_n, pth_n, sth_n, cth_n, sph_n, cph_n,
-            dist_n, steps_n, result, hx, hy, hz, lx_n, ly_n, lz_n,
-            t_n, h_new, min_r_n)
+    min_r_n = torch.where(advance, jmin(min_r, r_n), min_r)
+    out = (r_n, th_n, ph_n, pr_n, pth_n, sth_n, cth_n, sph_n, cph_n,
+           dist_n, steps_n, result, hx, hy, hz, lx_n, ly_n, lz_n,
+           t_n, h_new, min_r_n)
+    if track:
+        out = out + (min_az, gx, gy, gz, gdx, gdy, gdz)
+    return out
 
 
-# State slots stored as the 15 output planes, in plane order.
-_OUT_SLOTS = (S_RESULT, S_DIST, S_STEPS, S_HX, S_HY, S_HZ, S_LX, S_LY, S_LZ,
-              S_R, S_ST, S_CT, S_SP, S_CP, S_MINR)
+def _out_slots(track: bool):
+    """State slots stored as the output planes, in plane order."""
+    base = (S_RESULT, S_DIST, S_STEPS, S_HX, S_HY, S_HZ, S_LX, S_LY, S_LZ,
+            S_R, S_ST, S_CT, S_SP, S_CP, S_MINR)
+    return base + (tuple(range(S_MINAZ, S_GDZ + 1)) if track else ())
 
 
-def _init_state(scal, inp, result0):
-    """The 21 state slots at the start of a trace (the JAX package's
+def _init_state(scal, inp, result0, track: bool = False, min_az0=1e9):
+    """The state slots at the start of a trace (the JAX package's
     _load_init): BL state and trig from inp, hit position and last
     direction from the ray's origin and direction, min_r = r0, h = dt;
-    dist, steps and t start at 0 and result at result0.  Fed tangent
-    planes with result0 = 0 it gives the initial tangent (the JAX
-    package's _zero_ctrl_tangents)."""
+    dist, steps and t start at 0 and result at result0; under track
+    min_az at min_az0 and the tracked position and direction at the
+    origin and direction.  Fed tangent planes with result0 = 0 and
+    min_az0 = 0 it gives the initial tangent (the JAX package's
+    _zero_ctrl_tangents)."""
     zeros = torch.zeros_like(inp[0])
-    return (inp[0], inp[1], inp[2], inp[3], inp[4],
-            inp[12], inp[13], inp[14], inp[15],
-            zeros, zeros, zeros + result0,
-            inp[6], inp[7], inp[8], inp[9], inp[10], inp[11],
-            zeros, zeros + scal[3], inp[0])
+    state = (inp[0], inp[1], inp[2], inp[3], inp[4],
+             inp[12], inp[13], inp[14], inp[15],
+             zeros, zeros, zeros + result0,
+             inp[6], inp[7], inp[8], inp[9], inp[10], inp[11],
+             zeros, zeros + scal[3], inp[0])
+    if track:
+        state = state + (zeros + min_az0, inp[6], inp[7], inp[8], inp[9],
+                         inp[10], inp[11])
+    return state
 
 
 def _scal_tuple(scal, inp):
@@ -479,32 +448,34 @@ def _scal_tuple(scal, inp):
 
 
 def trace_planes_plain(scal, inp, disk_enabled: bool, max_steps: int,
-                       adaptive: bool):
+                       adaptive: bool, track: bool = False):
     """Plain version of the kernel: integrate every ray of inp (16, n)
     until it retires or max_steps.  A retired ray's state is frozen,
-    as in the kernel's per-ray loop.  Returns out (15, n)."""
-    state = _init_state(scal, inp, _ACTIVE)
+    as in the kernel's per-ray loop.  Returns out (n_out(track), n)."""
+    state = _init_state(scal, inp, _ACTIVE, track)
     sc = _scal_tuple(scal, inp)
     for _ in range(max_steps):
         active = state[S_RESULT] == _ACTIVE
         if not bool(active.any()):
             break
-        new = step_update(state, sc, disk_enabled, adaptive)
+        new = step_update(state, sc, disk_enabled, adaptive, track)
         state = tuple(torch.where(active, n, o) for n, o in zip(new, state))
-    return torch.stack([state[i] for i in _OUT_SLOTS])
+    return torch.stack([state[i] for i in _out_slots(track)])
 
 
 def step_update_jvp(state, dstates, scal, dscals, disk_enabled: bool,
-                    adaptive: bool = False):
+                    adaptive: bool = False, track: bool = False):
     """The plain version of K2's step: torch.func.jvp of
     tangent_guard(step_update(..., slave=True)), once per tangent
     direction, as the JAX package's multi-tangent kernel applies jax.jvp
-    per direction.  dstates / dscals: one tangent tuple per direction.
+    per direction; the guard spans every slot, the tracking slots
+    included.  dstates / dscals: one tangent tuple per direction.
     Returns (new state, [new tangent per direction])."""
 
     def f(st, sc):
         return sensitivity.tangent_guard(
-            1, step_update(st, sc, disk_enabled, adaptive, slave=True)
+            1, step_update(st, sc, disk_enabled, adaptive, track,
+                           slave=True)
         )
 
     new, dnews = None, []
@@ -516,63 +487,68 @@ def step_update_jvp(state, dstates, scal, dscals, disk_enabled: bool,
 
 
 def trace_planes_fwdgrad_plain(scal, dscals, inp, dinps, disk_enabled: bool,
-                               max_steps: int, adaptive: bool):
+                               max_steps: int, adaptive: bool,
+                               track: bool = False):
     """Plain version of K2: integrate every ray of inp (16, n) with the
     tangent directions dscals (n_tan, 12), dinps (n_tan, 16, n) riding
     beside the one primal.  A retired ray's primal and tangents are
-    frozen.  Returns (out (15, n), douts (n_tan, 15, n))."""
-    state = _init_state(scal, inp, _ACTIVE)
+    frozen.  Returns (out (P, n), douts (n_tan, P, n)), P = n_out(track)."""
+    state = _init_state(scal, inp, _ACTIVE, track)
     sc = _scal_tuple(scal, inp)
-    dstates = [_init_state(ds, di, 0.0) for ds, di in zip(dscals, dinps)]
+    dstates = [_init_state(ds, di, 0.0, track, 0.0)
+               for ds, di in zip(dscals, dinps)]
     dscs = [_scal_tuple(ds, di) for ds, di in zip(dscals, dinps)]
     for _ in range(max_steps):
         active = state[S_RESULT] == _ACTIVE
         if not bool(active.any()):
             break
         new, dnews = step_update_jvp(state, dstates, sc, dscs, disk_enabled,
-                                     adaptive)
+                                     adaptive, track)
         state = tuple(torch.where(active, n, o) for n, o in zip(new, state))
         dstates = [tuple(torch.where(active, n, o) for n, o in zip(dn, do))
                    for dn, do in zip(dnews, dstates)]
-    return (torch.stack([state[i] for i in _OUT_SLOTS]),
-            torch.stack([torch.stack([ds[i] for i in _OUT_SLOTS])
+    slots = _out_slots(track)
+    return (torch.stack([state[i] for i in slots]),
+            torch.stack([torch.stack([ds[i] for i in slots])
                          for ds in dstates]))
 
 
 def trace_planes(scal, inp, disk_enabled: bool, max_steps: int,
-                 adaptive: bool):
+                 adaptive: bool, track: bool = False):
     """Integrate every ray of inp (16, n) with scene scalars scal (12,).
 
     CPU tensors go through trace_planes_plain; CUDA tensors launch the
-    hand-written kernel (csrc/trace_kernel.cu) on the current stream or
-    raise.  Returns out (15, n) float32."""
-    global launches
-    _check_planes(scal, inp)
+    hand-written kernel (csrc/trace_kernel.cu, its tracking variant
+    under track) on the current stream or raise.  Returns out
+    (n_out(track), n) float32."""
+    global launches, track_launches
+    _check_planes(scal, inp, disk_enabled, track)
     if inp.device.type == "cpu":
         return trace_planes_plain(scal, inp, disk_enabled, max_steps,
-                                  adaptive)
+                                  adaptive, track)
     n = inp.shape[1]
     if n == 0:
-        return torch.empty((N_OUT_PLANES, 0), dtype=torch.float32,
+        return torch.empty((n_out(track), 0), dtype=torch.float32,
                            device=inp.device)
     out = _Launch.apply(_launch_k1, scal, inp, disk_enabled, max_steps,
-                        adaptive)
+                        adaptive, track)
     launches += 1
+    track_launches += int(track)
     return out
 
 
 def trace_planes_fwdgrad(scal, dscals, inp, dinps, disk_enabled: bool,
-                         max_steps: int, adaptive: bool):
+                         max_steps: int, adaptive: bool, track: bool = False):
     """Integrate every ray of inp (16, n) with n_tan forward tangents
     dscals (n_tan, 12), dinps (n_tan, 16, n).
 
     CPU tensors go through trace_planes_fwdgrad_plain; CUDA tensors
-    launch K2 (csrc/trace_fwdgrad.cu) on the current stream, in passes
-    of at most MAX_TANGENTS_PER_PASS tangents (each pass recomputes the
-    same primal), or raise.  Returns (out (15, n), douts (n_tan, 15, n))
-    float32."""
-    global fwdgrad_launches
-    _check_planes(scal, inp)
+    launch K2 (csrc/trace_fwdgrad.cu, its tracking variant under track)
+    on the current stream, in passes of at most MAX_TANGENTS_PER_PASS
+    tangents (each pass recomputes the same primal), or raise.  Returns
+    (out (P, n), douts (n_tan, P, n)) float32, P = n_out(track)."""
+    global fwdgrad_launches, fwdgrad_track_launches
+    _check_planes(scal, inp, disk_enabled, track)
     n_tan = dscals.shape[0] if dscals.dim() == 2 else -1
     if dscals.shape != (n_tan, N_SCAL) or n_tan < 1:
         raise ValueError(f"dscals must be (n_tan >= 1, {N_SCAL}), got "
@@ -592,22 +568,25 @@ def trace_planes_fwdgrad(scal, dscals, inp, dinps, disk_enabled: bool,
             )
     if inp.device.type == "cpu":
         return trace_planes_fwdgrad_plain(scal, dscals, inp, dinps,
-                                          disk_enabled, max_steps, adaptive)
+                                          disk_enabled, max_steps, adaptive,
+                                          track)
     n = inp.shape[1]
+    p = n_out(track)
     if n == 0:
-        return (torch.empty((N_OUT_PLANES, 0), device=inp.device),
-                torch.empty((n_tan, N_OUT_PLANES, 0), device=inp.device))
+        return (torch.empty((p, 0), device=inp.device),
+                torch.empty((n_tan, p, 0), device=inp.device))
     out = None
     douts = []
     for t0 in range(0, n_tan, MAX_TANGENTS_PER_PASS):
         k = min(MAX_TANGENTS_PER_PASS, n_tan - t0)
         buf = _Launch.apply(_launch_k2, scal, dscals[t0:t0 + k], inp,
                             dinps[t0:t0 + k], disk_enabled, max_steps,
-                            adaptive)
+                            adaptive, track)
         fwdgrad_launches += 1
+        fwdgrad_track_launches += int(track)
         if out is None:
-            out = buf[:N_OUT_PLANES]
-        douts.append(buf[N_OUT_PLANES:].view(k, N_OUT_PLANES, n))
+            out = buf[:p]
+        douts.append(buf[p:].view(k, p, n))
     return out, torch.cat(douts) if len(douts) > 1 else douts[0]
 
 
@@ -644,37 +623,41 @@ class _Launch(torch.autograd.Function):
         )
 
 
-def _launch_k1(scal, inp, disk_enabled, max_steps, adaptive):
+def _launch_k1(scal, inp, disk_enabled, max_steps, adaptive, track):
     from blackhole_tpu_torch import cuda_lib
 
     scal, inp = scal.contiguous(), inp.contiguous()
-    out = torch.empty((N_OUT_PLANES, inp.shape[1]), dtype=torch.float32,
+    out = torch.empty((n_out(track), inp.shape[1]), dtype=torch.float32,
                       device=inp.device)
     with torch.cuda.device(inp.device):
         cuda_lib.trace_planes(scal, inp, out, inp.shape[1], max_steps,
-                              disk_enabled, adaptive,
+                              disk_enabled, adaptive, track,
                               torch.cuda.current_stream().cuda_stream)
     return out
 
 
-def _launch_k2(scal, dscals, inp, dinps, disk_enabled, max_steps, adaptive):
+def _launch_k2(scal, dscals, inp, dinps, disk_enabled, max_steps, adaptive,
+               track):
     from blackhole_tpu_torch import cuda_lib
 
     scal, inp = scal.contiguous(), inp.contiguous()
     dscals, dinps = dscals.contiguous(), dinps.contiguous()
     k, n = dscals.shape[0], inp.shape[1]
-    buf = torch.empty(((1 + k) * N_OUT_PLANES, n), dtype=torch.float32,
+    buf = torch.empty(((1 + k) * n_out(track), n), dtype=torch.float32,
                       device=inp.device)
     with torch.cuda.device(inp.device):
         cuda_lib.trace_planes_fwdgrad(
             scal, dscals, inp, dinps, buf, n, k, max_steps, disk_enabled,
-            adaptive, torch.cuda.current_stream().cuda_stream,
+            adaptive, track, torch.cuda.current_stream().cuda_stream,
         )
     return buf
 
 
-def _check_planes(scal, inp):
-    """Shape, type and device checks shared by the kernels' wrappers."""
+def _check_planes(scal, inp, disk_enabled, track):
+    """Shape, type and device checks shared by the kernels' wrappers;
+    tracking needs the disk (its updates live in the disk block)."""
+    if track and not disk_enabled:
+        raise ValueError("crossing-opacity tracking needs the disk on")
     if torch.is_grad_enabled() and (scal.requires_grad or inp.requires_grad):
         raise NotImplementedError(
             "the geodesic kernels are forward-mode only; reverse mode is "
@@ -708,14 +691,15 @@ class _Planes(torch.autograd.Function):
     tangent, which stands for K3.  Reverse mode raises."""
 
     @staticmethod
-    def forward(scal, inp, disk_enabled, max_steps, adaptive):
-        return trace_planes(scal, inp, disk_enabled, max_steps, adaptive)
+    def forward(scal, inp, disk_enabled, max_steps, adaptive, track):
+        return trace_planes(scal, inp, disk_enabled, max_steps, adaptive,
+                            track)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        scal, inp, disk_enabled, max_steps, adaptive = inputs
+        scal, inp, *args = inputs
         ctx.save_for_forward(scal, inp)
-        ctx.args = (disk_enabled, max_steps, adaptive)
+        ctx.args = tuple(args)
 
     @staticmethod
     def jvp(ctx, dscal, dinp, *_):
@@ -742,9 +726,14 @@ def _check_integrator(scene: Scene) -> bool:
     return scene.config.integrator == Integrator.RKF45
 
 
+def _soft(scene: Scene) -> bool:
+    return float(scene.config.shadow_softness) > 0.0
+
+
 def _needs_L(scene: Scene) -> bool:
-    """finalize reads the per-ray conserved L for exact Kerr kinematics."""
-    return scene.config.disk_kinematics in ("auto", "kerr")
+    """finalize reads the per-ray conserved L: its sign for the soft
+    shadow boundary, its value for exact Kerr kinematics."""
+    return _soft(scene) or scene.config.disk_kinematics in ("auto", "kerr")
 
 
 def prepare(origins, directions, scene: Scene):
@@ -773,19 +762,21 @@ def prepare(origins, directions, scene: Scene):
             bh.mass, bh.a, bh.charge, cfg.time_step, cfg.max_ray_distance,
             r_capture, disk.inner_radius, disk.outer_radius,
             torch.sin(disk.inclination), torch.cos(disk.inclination),
-            _max(cfg.tolerance, 1e-12),
-            derived.kerr_photon_orbit_radius(bh.mass, _abs(bh.spin), 1.0),
+            jmax(cfg.tolerance, 1e-12),
+            derived.kerr_photon_orbit_radius(bh.mass, jabs(bh.spin), 1.0),
         ]
     ).to(device=o.device, dtype=torch.float32)
     return scal, inp
 
 
 def postprocess(out, n: int, batch_shape, scene: Scene, inv_order=None,
-                L=None) -> Hit:
-    """Post-kernel stage: output planes (15, n) -> shaded Hit.
+                L=None, margin=None) -> Hit:
+    """Post-kernel stage: output planes (n_out(track), n) -> shaded Hit.
 
     inv_order restores the caller's ray order after a depth-sorted
-    trace; L is the per-ray conserved L in the caller's order."""
+    trace; L is the per-ray conserved L and margin the (margin, valid)
+    pair of trace.compute_capture_margin, both in the caller's order."""
+    track = trace.track_crossing(scene)
     flat = out[:, :n]
     if inv_order is not None:
         flat = flat[:, inv_order]
@@ -809,8 +800,11 @@ def postprocess(out, n: int, batch_shape, scene: Scene, inv_order=None,
         last_dir=flat[6:9].T,
         min_r=flat[14],
         iter=0,
+        min_az=flat[15] if track else None,
+        gpos=flat[16:19].T if track else None,
+        gdir=flat[19:22].T if track else None,
     )
-    hit = trace.finalize(carry, scene)
+    hit = trace.finalize(carry, scene, margin=margin)
     return hit.map(lambda x: x.reshape(tuple(batch_shape) + x.shape[1:]))
 
 
@@ -819,9 +813,9 @@ def trace_rays_kernel(origins, directions, scene: Scene, order=None) -> Hit:
 
     order: optional (n,) permutation of the flattened rays (deepest
     first, see image.predicted_depth_order); the Hit is always in the
-    caller's ray order."""
-    adaptive = _check_integrator(scene)
-    trace.check_hard_edge(scene)
+    caller's ray order.  With shadow_softness > 0 the capture margin
+    comes from the caller-order rays, outside the kernel."""
+    args = planes_args(scene)
     batch_shape = origins.shape[:-1]
     o = origins.to(torch.float32).reshape(-1, 3)
     d = directions.to(torch.float32).reshape(-1, 3)
@@ -832,10 +826,11 @@ def trace_rays_kernel(origins, directions, scene: Scene, order=None) -> Hit:
         o, d = o[order], d[order]
         inv_order = torch.argsort(order)
     scal, inp = prepare(o, d, scene)
-    out = _Planes.apply(scal, inp, _disk_on(scene),
-                        int(scene.config.max_steps), adaptive)
+    out = _Planes.apply(scal, inp, *args)
     L = _L_of(scene, o0, d0) if _needs_L(scene) else None
-    return postprocess(out, n, batch_shape, scene, inv_order, L)
+    margin = (trace.compute_capture_margin(o0, d0, scene) if _soft(scene)
+              else None)
+    return postprocess(out, n, batch_shape, scene, inv_order, L, margin)
 
 
 def _disk_on(scene: Scene) -> bool:
@@ -862,9 +857,13 @@ def trace_rays_kernel_fwdgrad(origins, directions, scene: Scene, tangents,
     tangents alike.  Returns (hit, [hit tangent per direction])."""
     planes_in, finish = prepare_fwdgrad(origins, directions, scene, tangents,
                                         order)
-    return finish(*trace_planes_fwdgrad(
-        *planes_in, _disk_on(scene), int(scene.config.max_steps),
-        _check_integrator(scene)))
+    return finish(*trace_planes_fwdgrad(*planes_in, *planes_args(scene)))
+
+
+def planes_args(scene: Scene):
+    """(disk on, max steps, adaptive, track) of a scene's planes pass."""
+    return (_disk_on(scene), int(scene.config.max_steps),
+            _check_integrator(scene), trace.track_crossing(scene))
 
 
 def prepare_fwdgrad(origins, directions, scene: Scene, tangents, order=None):
@@ -874,9 +873,10 @@ def prepare_fwdgrad(origins, directions, scene: Scene, tangents, order=None):
     inputs, the tangents from torch.func.jvp of prepare, and finish(out,
     douts) -> (hit, [hit tangent per direction]), which shades the
     planes and takes each Hit tangent from torch.func.jvp of postprocess
-    given the tangent planes (dL from that of the caller-order L)."""
+    given the tangent planes (dL and, under shadow_softness > 0, the
+    capture margin's tangent dm from those of the caller-order L and
+    margin along the ray tangents)."""
     _check_integrator(scene)
-    trace.check_hard_edge(scene)
     batch_shape = origins.shape[:-1]
 
     def rays(x):
@@ -920,15 +920,30 @@ def prepare_fwdgrad(origins, directions, scene: Scene, tangents, order=None):
                 jvp(post, (out, scene), (dout, ds))[1]
                 for dout, (ds, _, _) in zip(douts, ray_tangents)]
 
-        def post_L(out_, s, L_):
-            return postprocess(out_, n, batch_shape, s, inv_order, L_)
+        soft = _soft(scene)
+        if soft:
+            # valid is a primal-only predicate, closed over.
+            m_arr, m_valid = trace.compute_capture_margin(o0, d0, scene)
+        else:
+            m_arr = torch.zeros_like(o0[:, 0])
+
+        def margin_of(s, o_, d_):
+            return trace.compute_capture_margin(o_, d_, s)[0]
+
+        def post_L(out_, s, L_, m_):
+            margin = (m_, m_valid) if soft else None
+            return postprocess(out_, n, batch_shape, s, inv_order, L_, margin)
 
         L = _L_of(scene, o0, d0)
         dhits = []
         for dout, rtan in zip(douts, ray_tangents):
-            # dL rides the jvp so the Kerr-mode shading sees its tangent.
+            # dL and dm ride the jvp so the Kerr-mode shading and the
+            # analytic shadow boundary see their tangents.
             _, dL = jvp(_L_of, (scene, o0, d0), rtan)
-            dhits.append(jvp(post_L, (out, scene, L), (dout, rtan[0], dL))[1])
-        return post_L(out, scene, L), dhits
+            dm = (jvp(margin_of, (scene, o0, d0), rtan)[1] if soft
+                  else torch.zeros_like(m_arr))
+            dhits.append(jvp(post_L, (out, scene, L, m_arr),
+                             (dout, rtan[0], dL, dm))[1])
+        return post_L(out, scene, L, m_arr), dhits
 
     return planes_in, finish

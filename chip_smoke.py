@@ -13,7 +13,8 @@ Phases (each raises on failure; nothing is caught):
      < 2e-4 over agreeing non-MAX_STEPS rays; RKF45: at most n/500 codes
      differ, colour mean < 2e-3 and p99 < 3e-2);
   4. K2 (trace_planes_fwdgrad) against its plain version on the same
-     cases with the tangents d/d(mass, spin), under K2's contract
+     cases with the tangents d/d(mass, spin) (with the disk on, the first
+     15 planes of the plain tracking pass), under K2's contract
      (fwdgrad_stats): the primal under K1's contracts and no result
      code differing from K1's; the colour tangents (clipped at
      TANGENT_CLIP, as the bench loss clips them) of the rays whose result
@@ -46,10 +47,39 @@ Phases (each raises on failure; nothing is caught):
      CUDA-event times, bounds, and the result codes of K2's primal that
      differ from K1's.  The RK4 whole loss gradient's gap at 1024x1024 is
      reported, not gated: a few near-critical rays change their result
-     code there.
-The last three lines are the card, one JSON object about the kernels and
-one JSON object with "ok" and the device.  Exits non-zero without a
-result when no GPU is present or the package is missing.
+     code there.  The RK4 comparisons (2 tangents and 1) hold the
+     kernel's planes on every PLAIN_SAMPLE-th ray against one plain
+     tracking pass with 2 tangents on those rays (plain_tracking: its
+     first 15 planes are the non-tracking plain version's), which phase
+     9 reuses;
+  3-4 (track). The tracking variants (shadow_softness 0.3, disk on: the
+     crossing-opacity planes) against their plain versions at the 64x64
+     parity cases, spin 0 and 0.9, RK4 and RKF45, 250 steps, one plain
+     tracking pass per case (phase 4's): RK4: K1-track under K1's exact
+     contract plus the 7 tracking planes (track_stats), K2-track with 2
+     tangents and with 1 under K2's, its primal codes equal to
+     K1-track's; RKF45: the 15 shared planes under the non-tracking RKF45
+     contracts (through the hard-edge colour and its tangents), the soft
+     colour within SOFT_RKF45_FACTOR of the plain version's own response
+     to a one-ulp change of the tolerance; the tracking planes live;
+  9. the soft path at 1024x1024 (the bench scene with softness 0.3):
+     render_image RK4 (prepass and render: K1-track launches counted),
+     trace_rays_fast rays/s (median of 3), scene_value_and_grad RK4 and
+     RKF45 (finite gradients, fwd+bwd rays/s median/min/max, K2-track
+     launches counted); CUDA-event times and bounds of K1-track and
+     K2-track (RK4, 2 tangents), each held to its plain version on every
+     PLAIN_SAMPLE-th ray of the 1024x1024 pass (phase 8's plain tracking
+     pass, whose primal must equal K1-track's plain version bitwise);
+  10. gradient fidelity: torch.func.jvp of the clipped MSE through
+     trace_rays_fast at 256x256, 800 steps, softness 0.3, against central
+     finite differences at mass 1.03 and 0.98 (rtol FIDELITY_RTOL);
+  11. grad.inverse.fit_forward for 3 steps at 256x256 (RKF45 tol 1e-6,
+     softness 0.3) from mass 1.03 against a target rendered at 1.0:
+     finite losses and log_mass moving toward 0; ms per step.
+Every phase prints its start time.  The last three lines are the card,
+one JSON object about the kernels and one JSON object with "ok" and the
+device.  Exits non-zero without a result when no GPU is present or the
+package is missing.
 """
 
 from __future__ import annotations
@@ -74,9 +104,17 @@ KERNELS = {
         route="cuda", source="blackhole_tpu_torch/csrc/trace_fwdgrad.cu",
         replaces="blackhole_tpu/render/pallas_kernel.py:696 "
                  "(and :632 with one tangent)"),
+    "trace_planes[track]": dict(
+        route="cuda", source="blackhole_tpu_torch/csrc/trace_kernel.cu",
+        replaces="blackhole_tpu/render/pallas_kernel.py:597 (track=True)"),
+    "trace_planes_fwdgrad[track]": dict(
+        route="cuda", source="blackhole_tpu_torch/csrc/trace_fwdgrad.cu",
+        replaces="blackhole_tpu/render/pallas_kernel.py:696 "
+                 "(and :632 with one tangent; track=True)"),
 }
 # Floating-point operations per integration step (an FMA counts 2) of the
-# kernels with the disk on, by (tangents, adaptive), K1 being 0 tangents:
+# kernels with the disk on, by (tangents, adaptive, track), K1 being 0
+# tangents:
 # (the least the arithmetic needs, what the CUDA source executes).  The
 # source spends more on 1 / sqrt (two, where one rsqrt does), on a Dual
 # quotient (1 / (b b) and four operations per tangent, where the quotient
@@ -86,9 +124,12 @@ KERNELS = {
 # test_flops_per_step_match_chip_smoke, holds these numbers).  The bound
 # takes the least; the executed count gives the FP32 issue share.
 FLOPS_PER_STEP = {
-    (0, False): (754.0, 756.0), (0, True): (1459.5, 1461.5),
-    (1, False): (2456.0, 2560.0), (1, True): (4633.4, 4852.4),
-    (2, False): (4141.0, 4294.0), (2, True): (7786.4, 8129.2),
+    (0, False, False): (754.0, 756.0), (0, True, False): (1459.5, 1461.5),
+    (1, False, False): (2456.0, 2560.0), (1, True, False): (4633.4, 4852.4),
+    (2, False, False): (4141.0, 4294.0), (2, True, False): (7786.4, 8129.2),
+    (0, False, True): (761.0, 763.0), (0, True, True): (1466.5, 1468.5),
+    (1, False, True): (2493.0, 2597.0), (1, True, True): (4670.4, 4889.4),
+    (2, False, True): (4207.0, 4360.0), (2, True, True): (7852.4, 8195.2),
 }
 # NVIDIA H100 SXM at its 700 W limit: FP32 outside the tensor cores and
 # device memory bandwidth (data sheet).
@@ -115,9 +156,21 @@ TANGENT_LIMITS = {"steady": (1e-3, 1e-3), "controller": (2e-3, 3e-2)}
 # (5.4e-3 over the rays whose steps agree).  The whole loss gradient is
 # held at RKF45_GRAD_RTOL, a backstop beside the tangents' contract.
 RKF45_GRAD_RTOL = 1e-2
-# The plain version integrates every RKF45_SAMPLE-th ray of the kernel's
-# 1024x1024 RKF45 pass (rays are independent).
+# At 1024x1024 the plain versions integrate a sample of the kernel's
+# pass (rays are independent): every PLAIN_SAMPLE-th ray for RK4 (one
+# plain tracking pass with 2 tangents serves K2, K3, K1-track and
+# K2-track), every RKF45_SAMPLE-th for K2 RKF45.  The plain versions'
+# time is their per-step launches, nearly independent of the rays.
+PLAIN_SAMPLE = 16
 RKF45_SAMPLE = 64
+# The soft boundary's AD/FD contract at 256x256, 800 steps (the JAX
+# package's pin, tests/test_tpu_compiled.py).
+FIDELITY_RTOL = 0.15
+# RKF45 with tracking: the kernel's soft colour against the plain
+# version's, in mean and p99, at most this times the plain version's own
+# response to its tolerance moved by one ulp (check_track_vs_plain;
+# PERF.md gives the measured ratios).
+SOFT_RKF45_FACTOR = 2.0
 
 
 def check(ok, what):
@@ -127,8 +180,9 @@ def check(ok, what):
 
 
 def parity_scene(spin, disk_enabled, integrator, device, size=64,
-                 max_steps=250):
-    """The parity case of the JAX package's compiled-kernel checks."""
+                 max_steps=250, softness=0.0):
+    """The parity case of the JAX package's compiled-kernel checks
+    (softness > 0 with the disk on: the tracking variants)."""
     from blackhole_tpu_torch.geom.types import (
         BlackHole, Camera, Disk, Scene, SimConfig,
     )
@@ -139,7 +193,7 @@ def parity_scene(spin, disk_enabled, integrator, device, size=64,
         Disk.create(6.0, 20.0, device=device),
         SimConfig.create(time_step=0.1, max_ray_distance=80.0,
                          max_steps=max_steps, integrator=integrator,
-                         device=device),
+                         shadow_softness=softness, device=device),
         disk_enabled=disk_enabled,
     )
     camera = Camera.create(position=(0.0, -30.0, 8.0),
@@ -149,8 +203,9 @@ def parity_scene(spin, disk_enabled, integrator, device, size=64,
     return scene, camera, o.reshape(-1, 3), d.reshape(-1, 3)
 
 
-def bench_scene(device, integrator="rk4"):
-    """bench.py's scene: Kerr a=0.9, disk 6-20, 1000 steps, budget 150."""
+def bench_scene(device, integrator="rk4", softness=0.0):
+    """bench.py's scene: Kerr a=0.9, disk 6-20, 1000 steps, budget 150
+    (softness > 0: the soft path)."""
     from blackhole_tpu_torch.geom.types import (
         BlackHole, Camera, Disk, Scene, SimConfig,
     )
@@ -160,12 +215,24 @@ def bench_scene(device, integrator="rk4"):
         Disk.create(6.0, 20.0, 1.0, 1.0, device=device),
         SimConfig.create(time_step=0.1, max_ray_distance=150.0,
                          max_steps=1000, integrator=integrator,
-                         tolerance=1e-6, device=device),
+                         tolerance=1e-6, shadow_softness=softness,
+                         device=device),
     )
     camera = Camera.create(position=(0.0, -35.0, 12.0),
                            direction=(0.0, 35.0, -12.0), up=(0.0, 0.0, 1.0),
                            fov_deg=22.0, device=device)
     return scene, camera
+
+
+def shade(planes, o, d, scene, L):
+    """postprocess of K1's planes for the rays (o, d) (the capture margin
+    too under shadow_softness > 0, as trace_rays_kernel passes it)."""
+    from blackhole_tpu_torch.render import trace, trace_kernel as tk
+
+    margin = (trace.compute_capture_margin(o, d, scene)
+              if scene.config.shadow_softness > 0 else None)
+    return tk.postprocess(planes, o.shape[0], (o.shape[0],), scene, None, L,
+                          margin)
 
 
 def kernel_and_plain(o, d, scene):
@@ -174,20 +241,16 @@ def kernel_and_plain(o, d, scene):
     wrapper and through its plain version."""
     from blackhole_tpu_torch.render import trace_kernel as tk
 
-    adaptive = scene.config.integrator == "rkf45"
-    disk = bool(scene.disk_enabled and scene.config.show_disk)
     scal, inp = tk.prepare(o, d, scene)
-    args = (disk, scene.config.max_steps, adaptive)
-    hits = []
-    for planes in (tk.trace_planes(scal, inp, *args),
-                   tk.trace_planes_plain(scal, inp, *args)):
-        hits.append(tk.postprocess(planes, o.shape[0], (o.shape[0],), scene,
-                                   None, inp[5]))
-    return hits
+    args = tk.planes_args(scene)
+    return [shade(p, o, d, scene, inp[5])
+            for p in (tk.trace_planes(scal, inp, *args),
+                      tk.trace_planes_plain(scal, inp, *args))]
 
 
-def parity_stats(hit_k, hit_p, exact):
-    """The parity contract of kernel against plain; raises on a breach.
+def parity_stats(hit_k, hit_p, exact, gate=True):
+    """The parity contract of kernel against plain; raises on a breach
+    (gate=False: only reports).
 
     exact (the RK4 contract at the parity case): result codes equal and
     colour max < 2e-4 over agreeing non-MAX_STEPS rays.  Otherwise the
@@ -215,7 +278,7 @@ def parity_stats(hit_k, hit_p, exact):
     else:
         ok = (stats["result_mismatch"] <= max(1, n // 500)
               and stats["color_mean"] < 2e-3 and stats["color_p99"] < 3e-2)
-    check(ok, f"kernel disagrees with plain: {stats}")
+    check(ok or not gate, f"kernel disagrees with plain: {stats}")
     return stats
 
 
@@ -260,12 +323,6 @@ def loss_grads(hit, dhits, clip=TANGENT_CLIP, rays=None):
     return float(hit.color.double().sum()) / n3, grads
 
 
-def planes_args(scene):
-    """(disk on, max steps, adaptive) of the planes pass of a scene."""
-    return (bool(scene.disk_enabled and scene.config.show_disk),
-            int(scene.config.max_steps), scene.config.integrator == "rkf45")
-
-
 def fwdgrad_trace(o, d, scene, tangents, plain=False):
     """trace_rays_kernel_fwdgrad's host stages around K2 (or its plain
     version): (hit, [hit tangent per direction])."""
@@ -273,18 +330,21 @@ def fwdgrad_trace(o, d, scene, tangents, plain=False):
 
     planes_in, finish = tk.prepare_fwdgrad(o, d, scene, tangents)
     fn = tk.trace_planes_fwdgrad_plain if plain else tk.trace_planes_fwdgrad
-    return finish(*fn(*planes_in, *planes_args(scene)))
+    return finish(*fn(*planes_in, *tk.planes_args(scene)))
 
 
 def grads_close(got, ref, rtol=1e-3, atol=1e-7):
     return all(abs(g - r) <= atol + rtol * abs(r) for g, r in zip(got, ref))
 
 
-def fwdgrad_stats(kern, plain, exact, noise="steady", whole_rtol=None):
+def fwdgrad_stats(kern, plain, exact, noise="steady", whole_rtol=None,
+                  agree=None):
     """K2's contract against its plain version; kern and plain are
     (hit, [hit tangent]) of the same rays.  Raises on a breach of: the
     primal's parity contract (parity_stats); over the rays whose result
-    code and step count agree, the mean and p99 of each ray's largest
+    code and step count agree (and, with the tracking planes, `agree`:
+    whose tracked sample agrees, same_sample), the mean and p99 of each
+    ray's largest
     difference of clipped colour tangent (TANGENT_LIMITS[noise]) and,
     unless noise is "controller", the loss gradient summed over them
     (rtol 1e-3, atol 1e-7); the whole loss gradient within whole_rtol
@@ -294,6 +354,8 @@ def fwdgrad_stats(kern, plain, exact, noise="steady", whole_rtol=None):
     (hit_k, dh_k), (hit_p, dh_p) = kern, plain
     stats = parity_stats(hit_k, hit_p, exact)
     same = (hit_k.result == hit_p.result) & (hit_k.steps == hit_p.steps)
+    if agree is not None:
+        same = same & agree
     clip = [[dh.color.clamp(-TANGENT_CLIP, TANGENT_CLIP) for dh in dhs]
             for dhs in (dh_k, dh_p)]
     err = torch.stack([(a - b).abs().amax(-1)
@@ -327,17 +389,75 @@ def fwdgrad_stats(kern, plain, exact, noise="steady", whole_rtol=None):
     return stats
 
 
-def check_fwdgrad_vs_plain(device, size=64, integrators=("rk4", "rkf45")):
-    """Phase 4; returns one stats dict per case."""
+def soften(scene, softness=0.3):
+    """The scene (or a scene tangent) with the soft boundary: with the
+    disk on, its planes pass is the tracking variant."""
+    return dataclasses.replace(scene, config=dataclasses.replace(
+        scene.config, shadow_softness=softness))
+
+
+def plain_tracking(cases):
+    """The plain version of K2-track (2 tangents) for the rays of the
+    disk-on cases [(o, d, scene, tangents)], each scene made soft, in
+    one pass over all their rays: the scene scalars go in per ray, which
+    the plain version takes elementwise (the same result as a pass per
+    case, bitwise: tests/test_torch_soft_slice.py).  Returns ([(out (22,
+    n), douts (2, 22, n)) per case], CUDA-event ms).  The plain versions
+    are bound by their per-step launches, not by rays, so one pass
+    serves several comparisons: its first 15 planes (and their tangents)
+    are the non-tracking plain K2's, its primal is the plain K1's
+    (-track's), and its first direction the one-tangent result, bitwise
+    (the tracking slots feed no other slot, and each direction is its
+    own torch.func.jvp)."""
+    import torch
+
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    parts, sizes = [], []
+    for o, d, scene, tangents in cases:
+        soft = soften(scene)
+        (scal, dscals, inp, dinps), _ = tk.prepare_fwdgrad(
+            o, d, soft, [soften(t) for t in tangents])
+        n = inp.shape[1]
+        parts.append((scal[:, None].expand(-1, n),
+                      dscals[:, :, None].expand(-1, -1, n), inp, dinps))
+        sizes.append(n)
+    scal, dscals, inp, dinps = (torch.cat(x, dim=-1) for x in zip(*parts))
+    (out, douts), ms = _cuda_ms(lambda: tk.trace_planes_fwdgrad_plain(
+        scal, dscals, inp, dinps, *tk.planes_args(soften(cases[0][2]))))
+    return list(zip(out.split(sizes, -1), douts.split(sizes, -1))), ms
+
+
+def shared(planes, k=2):
+    """The (out, douts) view of a plain tracking pass for k tangents
+    without the tracking planes."""
+    return planes[0][:15], planes[1][:k, :15]
+
+
+def check_fwdgrad_vs_plain(device, size=64, integrators=("rk4", "rkf45"),
+                           plains=None):
+    """Phase 4; returns one stats dict per case.  The disk-on cases of an
+    integrator share one plain tracking pass (plain_tracking), kept in
+    `plains` by (integrator, spin) for the tracking phase."""
     from blackhole_tpu_torch.render import trace_kernel as tk
 
     out = []
     for integ in integrators:
+        cases = []
         for spin, disk in ((0.0, True), (0.9, True), (0.9, False)):
             scene, _, o, d = parity_scene(spin, disk, integ, device, size)
-            tangents = mass_spin_tangents(scene)
-            kern, plain = (fwdgrad_trace(o, d, scene, tangents, p)
-                           for p in (False, True))
+            cases.append((spin, disk, o, d, scene, mass_spin_tangents(scene)))
+        shared_planes, _ = plain_tracking([c[2:] for c in cases if c[1]])
+        for spin, disk, o, d, scene, tangents in cases:
+            kern = fwdgrad_trace(o, d, scene, tangents)
+            if disk:
+                planes = shared_planes.pop(0)
+                if plains is not None:
+                    plains[(integ, spin)] = planes
+                _, finish = tk.prepare_fwdgrad(o, d, scene, tangents)
+                plain = finish(*shared(planes))
+            else:
+                plain = fwdgrad_trace(o, d, scene, tangents, plain=True)
             rkf45 = integ == "rkf45"
             stats = fwdgrad_stats(
                 kern, plain, exact=not rkf45,
@@ -376,12 +496,195 @@ def check_k3(device):
            for t in ((one, zero), (zero, one))]
     launches = tk.fwdgrad_launches - before
     check(launches == 2, f"jvp launched K2 {launches} times, not 2")
-    ref = [loss_grads(*fwdgrad_trace(o, d, scene, [tan], plain=True),
-                      clip=None)[1][0] for tan in mass_spin_tangents(scene)]
+    # The plain version's directions are its one-tangent results, bitwise
+    # (plain_tracking).
+    ref = loss_grads(*fwdgrad_trace(o, d, scene, mass_spin_tangents(scene),
+                                    plain=True), clip=None)[1]
     check(grads_close(got, ref), f"K3 jvp: gradient {got} vs plain {ref}")
     return {"dmass_kernel": got[0], "dmass_plain": ref[0],
             "dspin_kernel": got[1], "dspin_plain": ref[1],
             "k2_launches": launches}
+
+
+def track_stats(planes_k, planes_p, o, d, scene, agree=500):
+    """The 7 tracking planes of a tracking kernel's primal against its
+    plain version's, for the rays (o, d) of the soft `scene`; raises on a
+    breach.  agree (None: not gated): over the rays whose result code and
+    step count agree, each ray's largest difference over the 7 planes
+    (min_az far at 1e9 on both sides counts 0), at most n/agree rays
+    differ by more than 1e-3: 500 at the exact contract's 64x64 cases, 50
+    at 1024x1024, where FMA contraction moves near-critical rays' sampled
+    points (K1-track: 0.75% of a sample, PERF.md; a strict < between two
+    nearly equal sampled heights may also keep the other sample).  Live: some
+    non-disk rays passed the disk's band above and
+    below the plane, and setting min_az far (no crossing opacity) changes
+    the colour of some rays."""
+    from blackhole_tpu_torch.geom.types import RayResult
+
+    n = planes_p.shape[1]
+    same = (planes_k[0] == planes_p[0]) & (planes_k[2] == planes_p[2])
+    diff = (planes_k[15:22] - planes_p[15:22]).abs().amax(0)[same]
+    tracked = (planes_k[15] < 1e9) & (planes_k[0] != RayResult.DISK)
+    blind = planes_k.clone()
+    blind[15] = 1e9
+    L = shade_L(o, d, scene)
+    dc = (shade(planes_k, o, d, scene, L).color
+          - shade(blind, o, d, scene, L).color).abs().amax(-1)
+    stats = {
+        "track_same_steps": int(same.sum()),
+        "track_over_1e-3": int((diff > 1e-3).sum()),
+        "track_max": float(diff.max()) if diff.numel() else 0.0,
+        "tracked_above": int((tracked & (planes_k[18] > 0)).sum()),
+        "tracked_below": int((tracked & (planes_k[18] < 0)).sum()),
+        "opacity_rays": int((dc > 1e-3).sum()),
+    }
+    check((agree is None or stats["track_over_1e-3"] <= max(1, n // agree))
+          and stats["tracked_above"] > 0 and stats["tracked_below"] > 0
+          and stats["opacity_rays"] > 0,
+          f"tracking planes disagree with plain or are not live: {stats}")
+    return stats
+
+
+def same_sample(planes_k, planes_p):
+    """Rays whose 7 tracking planes agree within 1e-3: the same sample
+    holds their closest approach to the disk plane (another sample moves
+    the crossing opacity's tangent discontinuously, as another step count
+    moves the others)."""
+    return (planes_k[15:22] - planes_p[15:22]).abs().amax(0) <= 1e-3
+
+
+def shade_L(o, d, scene):
+    """The rays' conserved L, as prepare puts it in plane 5."""
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    return tk.prepare(o, d, scene)[1][5]
+
+
+def hard_edge(scene):
+    """The scene (or a scene tangent) with the hard shadow edge
+    (softness 0): its finalize reads the 15 shared planes only."""
+    return soften(scene, 0.0)
+
+
+def soft_sensitivity(o, d, scene, plain_planes):
+    """The soft colour's own response to the RKF45 step sequence: the
+    plain tracking pass at the tolerance one float32 ulp higher against
+    plain_planes (the same pass at the scene's tolerance), as
+    parity_stats (reported, not gated)."""
+    import numpy as np
+    import torch
+
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    tol = float(np.nextafter(np.float32(float(scene.config.tolerance)),
+                             np.float32(1.0)))
+    bumped = dataclasses.replace(scene, config=dataclasses.replace(
+        scene.config, tolerance=torch.tensor(tol, device=o.device)))
+    scal, inp = tk.prepare(o, d, bumped)
+    other = tk.trace_planes_plain(scal, inp, *tk.planes_args(bumped))
+    L = inp[5]
+    return parity_stats(shade(other, o, d, scene, L),
+                        shade(plain_planes, o, d, scene, L), exact=False,
+                        gate=False)
+
+
+def check_track_vs_plain(device, size=64, integrators=("rk4", "rkf45"),
+                         plains=None):
+    """Phases 3-4 (track): K1-track, and K2-track with 2 tangents and with
+    1, against their plain versions at the parity cases with softness 0.3
+    and the disk on; returns one stats dict per kernel and case.
+
+    One plain pass serves the three kernels of a case (plain_tracking;
+    phase 4's, from `plains`, when given).  RK4: the non-tracking contracts
+    (exact primal, K2's steady tangents) on the soft colour, plus the
+    tracking planes (track_stats).  RKF45: another rounding is another
+    step sequence, which samples the ray's closest approach to the disk
+    plane at other points, and the crossing opacity shows that in the
+    soft colour; the plain version at a tolerance one ulp higher moves it
+    as much (PERF.md).  So the non-tracking RKF45 contracts hold the 15
+    shared planes through the hard-edge colour and its tangents, the soft
+    colour may differ from plain's by at most SOFT_RKF45_FACTOR times the
+    plain version's own response to that ulp (soft_sensitivity, in mean
+    and p99), and the tracking planes must be live; the tracking
+    arithmetic is the same code as RK4's, held exactly there."""
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    out = []
+    for integ in integrators:
+        rkf45 = integ == "rkf45"
+        for spin in (0.0, 0.9):
+            scene, _, o, d = parity_scene(spin, True, integ, device, size,
+                                          softness=0.3)
+            args = tk.planes_args(scene)
+            check(args[3], "the soft scene does not track")
+            tangents = mass_spin_tangents(scene)
+            planes_in, finish = tk.prepare_fwdgrad(o, d, scene, tangents)
+            scal, dscals, inp, dinps = planes_in
+            plain = (plains or {}).get((integ, spin))
+            if plain is None:
+                (plain,), _ = plain_tracking([(o, d, scene, tangents)])
+            kerns = {
+                "K1-track": tk.trace_planes(scal, inp, *args),
+                "K2-track n=2": tk.trace_planes_fwdgrad(*planes_in, *args),
+                "K2-track n=1": tk.trace_planes_fwdgrad(
+                    scal, dscals[:1], inp, dinps[:1], *args),
+            }
+            case = {"integrator": integ, "spin": spin}
+            base = soft_sensitivity(o, d, scene, plain[0]) if rkf45 else None
+            for name, kern in kerns.items():
+                k = 0 if name == "K1-track" else int(name[-1])
+                prim = kern if k == 0 else kern[0]
+                hit_k, hit_p = (shade(p, o, d, scene, inp[5])
+                                for p in (prim, plain[0]))
+                stats = parity_stats(hit_k, hit_p, exact=not rkf45,
+                                     gate=not rkf45)
+                if k:
+                    fin = finish if k == 2 else tk.prepare_fwdgrad(
+                        o, d, scene, tangents[:1])[1]
+                    pair = (fin(*kern), fin(plain[0], plain[1][:k]))
+                    if rkf45:
+                        # The shared planes' tangents, through the hard
+                        # edge; the soft gradient is reported.
+                        fin_h = tk.prepare_fwdgrad(
+                            o, d, hard_edge(scene),
+                            [hard_edge(t) for t in tangents[:k]])[1]
+                        hard = fwdgrad_stats(
+                            fin_h(kern[0][:15], kern[1][:, :15]),
+                            fin_h(plain[0][:15], plain[1][:k, :15]),
+                            exact=False, noise="controller",
+                            whole_rtol=RKF45_GRAD_RTOL)
+                        stats.update({f"hard_{key}": v
+                                      for key, v in hard.items()})
+                        (_, g_k), (_, g_p) = (loss_grads(*h) for h in pair)
+                        stats.update(soft_grad_kernel=g_k,
+                                     soft_grad_plain=g_p)
+                    else:
+                        stats.update(fwdgrad_stats(
+                            *pair, exact=True, whole_rtol=1e-3,
+                            agree=same_sample(kern[0], plain[0])))
+                    stats["codes_vs_k1"] = int(
+                        (prim[0] != kerns["K1-track"][0]).sum())
+                    check(stats["codes_vs_k1"] == 0,
+                          f"{name}'s primal differs from K1-track's in "
+                          f"{stats['codes_vs_k1']} result codes")
+                if rkf45:
+                    hard = parity_stats(
+                        *(shade(p[:15], o, d, hard_edge(scene), inp[5])
+                          for p in (prim, plain[0])), exact=False)
+                    stats.update({f"hard_{key}": v for key, v in hard.items()})
+                    stats.update(base_color_mean=base["color_mean"],
+                                 base_color_p99=base["color_p99"])
+                    check(stats["result_mismatch"] <= max(1, o.shape[0] // 500)
+                          and stats["color_mean"]
+                          <= SOFT_RKF45_FACTOR * base["color_mean"]
+                          and stats["color_p99"]
+                          <= SOFT_RKF45_FACTOR * base["color_p99"],
+                          f"{name} soft colour beyond the plain version's "
+                          f"own step-sequence response: {stats}")
+                stats.update(track_stats(prim, plain[0], o, d, scene,
+                                         agree=None if rkf45 else 500))
+                out.append({"kernel": name, **case, **stats})
+    return out
 
 
 def _hits_equal(a, b):
@@ -428,15 +731,18 @@ def _cuda_ms(fn):
     return res, start.elapsed_time(stop)
 
 
-def bound_ms(n_tan, adaptive, steps_plane, n_rays):
+def bound_ms(n_tan, adaptive, steps_plane, n_rays, track=False):
     """The least time the card could take for a planes pass: the larger
     of its operations (the least per-step count times this run's steps)
     over the FP32 rate and its bytes (inputs read once, outputs written
     once) over the memory rate.  Returns (ms, "operations" or "bytes",
     the executed operations' time in ms at the FP32 rate)."""
     steps = float(steps_plane.double().sum())
-    least, executed = (c * steps for c in FLOPS_PER_STEP[(n_tan, adaptive)])
-    nbytes = 4 * ((1 + n_tan) * (12 + 16 * n_rays) + (1 + n_tan) * 15 * n_rays)
+    least, executed = (c * steps for c in
+                       FLOPS_PER_STEP[(n_tan, adaptive, track)])
+    n_planes = 15 + 7 * int(track)
+    nbytes = 4 * ((1 + n_tan) * (12 + 16 * n_rays)
+                  + (1 + n_tan) * n_planes * n_rays)
     t_ops, t_bytes = least / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes",
@@ -450,78 +756,100 @@ def print_bound(what, ms, bound):
           f"{100 * issue_ms / ms:.1f}%")
 
 
+def sample_hits(o, d, scene, tangents, planes, pick):
+    """K2's planes (out, douts) for the rays pick of (o, d), finished
+    into (hit, [hit tangent]) with scene's host stages."""
+    from blackhole_tpu_torch.render import trace_kernel
+
+    _, finish = trace_kernel.prepare_fwdgrad(o[pick], d[pick], scene,
+                                             tangents)
+    return finish(*planes)
+
+
+def time_fwdgrad(o, d, scene, tangents):
+    """K2's planes for all rays (median of 3 CUDA-event times)."""
+    from blackhole_tpu_torch.render import trace_kernel
+
+    planes_in, _ = trace_kernel.prepare_fwdgrad(o, d, scene, tangents)
+    args = trace_kernel.planes_args(scene)
+    runs = [_cuda_ms(lambda: trace_kernel.trace_planes_fwdgrad(
+        *planes_in, *args)) for _ in range(3)]
+    return runs[0][0], statistics.median(ms for _, ms in runs)
+
+
 def check_fwdgrad_main_shapes(o, d, scene, scene45, k1_planes, k1_ms):
     """Phase 8's K2 checks at the main path's shapes, given K1's planes
     and time for the same rays of `scene`; prints times and bounds and
-    returns K2's row of the kernels line."""
-    from blackhole_tpu_torch.render import trace_kernel
+    returns K2's row of the kernels line and the plain tracking pass on
+    every PLAIN_SAMPLE-th ray (with its ms), which phase 9 reuses."""
+    from blackhole_tpu_torch.render import trace_kernel as tk
 
     n = o.shape[0]
-    args = planes_args(scene)
+    tangents = mass_spin_tangents(scene)
+    pick = slice(None, None, PLAIN_SAMPLE)
     # K2 against its plain version at the main path's shapes (raster
-    # order: the depth order changes no value, phase 6).
-    (scal, dscals, inp, dinps), finish = trace_kernel.prepare_fwdgrad(
-        o, d, scene, mass_spin_tangents(scene))
-    runs = [_cuda_ms(lambda: trace_kernel.trace_planes_fwdgrad(
-        scal, dscals, inp, dinps, *args)) for _ in range(3)]
-    k2_planes = runs[0][0]
-    ms_k2 = statistics.median(ms for _, ms in runs)
-    p2_planes, ms_p2 = _cuda_ms(
-        lambda: trace_kernel.trace_planes_fwdgrad_plain(
-            scal, dscals, inp, dinps, *args))
-    print(f"K2 planes 1024^2 rk4 (2 tangents): kernel {ms_k2:.3f} ms "
-          f"({ms_k2 / k1_ms:.2f}x K1), plain {ms_p2:.3f} ms")
+    # order: the depth order changes no value, phase 6), the plain
+    # version on every PLAIN_SAMPLE-th ray: one tracking pass serves K2
+    # with 2 tangents and with 1 here and the tracking kernels in
+    # phase 9 (plain_tracking).
+    (planes_s,), ms_s = plain_tracking([(o[pick], d[pick], scene, tangents)])
+    plain_s = (planes_s, ms_s)
+    k2_planes, ms_k2 = time_fwdgrad(o, d, scene, tangents)
     k2_bound = bound_ms(2, False, k2_planes[0][2], n)
-    print_bound("K2 1024^2 rk4", ms_k2, k2_bound)
     out_k = k2_planes[0]
     k2_vs_k1 = int((out_k[0] != k1_planes[0]).sum())
     print(f"K2 primal vs K1 1024^2 rk4: {k2_vs_k1} of {n} result codes "
           f"differ, {int((out_k != k1_planes).sum())} of {k1_planes.numel()} "
           f"plane values")
-    big2 = fwdgrad_stats(finish(*k2_planes), finish(*p2_planes),
-                         exact=False)
-    print(f"parity K2 1024^2 rk4: {json.dumps(big2)}")
+    print(f"K2 planes 1024^2 rk4 (2 tangents): kernel {ms_k2:.3f} ms "
+          f"({ms_k2 / k1_ms:.2f}x K1); plain (tracking, 2 tangents) on every "
+          f"{PLAIN_SAMPLE}th ray {plain_s[1]:.3f} ms")
+    print_bound("K2 1024^2 rk4", ms_k2, k2_bound)
+    big2 = fwdgrad_stats(
+        sample_hits(o, d, scene, tangents,
+                    (out_k[:, pick], k2_planes[1][:, :, pick]), pick),
+        sample_hits(o, d, scene, tangents, shared(plain_s[0]), pick),
+        exact=False)
+    print(f"parity K2 1024^2 rk4 (every {PLAIN_SAMPLE}th ray): "
+          f"{json.dumps(big2)}")
     # K3: the same kernel with one tangent (d/dmass).
-    runs = [_cuda_ms(lambda: trace_kernel.trace_planes_fwdgrad(
-        scal, dscals[:1], inp, dinps[:1], *args)) for _ in range(3)]
-    ms_k3 = statistics.median(ms for _, ms in runs)
-    p3_planes, ms_p3 = _cuda_ms(
-        lambda: trace_kernel.trace_planes_fwdgrad_plain(
-            scal, dscals[:1], inp, dinps[:1], *args))
+    k3_planes, ms_k3 = time_fwdgrad(o, d, scene, tangents[:1])
     print(f"K3 (K2, 1 tangent) planes 1024^2 rk4: kernel {ms_k3:.3f} ms "
-          f"({ms_k3 / k1_ms:.2f}x K1), plain {ms_p3:.3f} ms")
-    print_bound("K3 1024^2 rk4", ms_k3,
-                bound_ms(1, False, runs[0][0][0][2], n))
-    big3 = fwdgrad_stats(finish(*runs[0][0]), finish(*p3_planes),
-                         exact=False)
-    print(f"parity K3 1024^2 rk4: {json.dumps(big3)}")
+          f"({ms_k3 / k1_ms:.2f}x K1)")
+    print_bound("K3 1024^2 rk4", ms_k3, bound_ms(1, False, k3_planes[0][2], n))
+    big3 = fwdgrad_stats(
+        sample_hits(o, d, scene, tangents[:1],
+                    (k3_planes[0][:, pick], k3_planes[1][:, :, pick]), pick),
+        sample_hits(o, d, scene, tangents[:1], shared(plain_s[0], 1), pick),
+        exact=False)
+    print(f"parity K3 1024^2 rk4 (every {PLAIN_SAMPLE}th ray): "
+          f"{json.dumps(big3)}")
     # RKF45: the kernel on all rays, the plain version on a sample.
     tangents45 = mass_spin_tangents(scene45)
-    (scal, dscals, inp, dinps), _ = trace_kernel.prepare_fwdgrad(
-        o, d, scene45, tangents45)
-    args45 = planes_args(scene45)
-    runs = [_cuda_ms(lambda: trace_kernel.trace_planes_fwdgrad(
-        scal, dscals, inp, dinps, *args45)) for _ in range(3)]
-    ms_k45 = statistics.median(ms for _, ms in runs)
-    every = slice(None, None, RKF45_SAMPLE)
-    k45 = (runs[0][0][0][:, every], runs[0][0][1][:, :, every])
-    _, finish45 = trace_kernel.prepare_fwdgrad(o[every], d[every], scene45,
-                                               tangents45)
-    p45, ms_p45 = _cuda_ms(lambda: trace_kernel.trace_planes_fwdgrad_plain(
-        scal, dscals, inp[:, every].contiguous(),
-        dinps[:, :, every].contiguous(), *args45))
+    k45_planes, ms_k45 = time_fwdgrad(o, d, scene45, tangents45)
+    pick45 = slice(None, None, RKF45_SAMPLE)
+    (scal, dscals, inp, dinps), _ = tk.prepare_fwdgrad(o, d, scene45,
+                                                       tangents45)
+    p45, ms_p45 = _cuda_ms(lambda: tk.trace_planes_fwdgrad_plain(
+        scal, dscals, inp[:, pick45].contiguous(),
+        dinps[:, :, pick45].contiguous(), *tk.planes_args(scene45)))
     print(f"K2 planes 1024^2 rkf45 (2 tangents): kernel {ms_k45:.3f} ms; "
           f"plain on every {RKF45_SAMPLE}th ray {ms_p45:.3f} ms")
     print_bound("K2 1024^2 rkf45", ms_k45,
-                bound_ms(2, True, runs[0][0][0][2], n))
-    big45 = fwdgrad_stats(finish45(*k45), finish45(*p45), exact=False,
-                          noise="controller", whole_rtol=RKF45_GRAD_RTOL)
+                bound_ms(2, True, k45_planes[0][2], n))
+    big45 = fwdgrad_stats(
+        sample_hits(o, d, scene45, tangents45,
+                    (k45_planes[0][:, pick45], k45_planes[1][:, :, pick45]),
+                    pick45),
+        sample_hits(o, d, scene45, tangents45, p45, pick45),
+        exact=False, noise="controller", whole_rtol=RKF45_GRAD_RTOL)
     print(f"parity K2 1024^2 rkf45 (every {RKF45_SAMPLE}th ray): "
           f"{json.dumps(big45)}")
-    return {"max_abs_err": max(
+    row = {"max_abs_err": max(
         max(b["color_max"], b["tangent_max"]) for b in (big2, big3, big45)),
-        "ms": ms_k2, "plain_ms": ms_p2, "bound_ms": k2_bound[0],
-        "bound_by": k2_bound[1], "library_ms": None}
+        "ms": ms_k2, "plain_ms": plain_s[1], "plain_every": PLAIN_SAMPLE,
+        "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None}
+    return row, plain_s
 
 
 def _timed(fn, repeats=3):
@@ -536,6 +864,260 @@ def _timed(fn, repeats=3):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return res, times[1:]
+
+
+def loss_of_hit(h):
+    """The bench loss: sum(colour) / 3n."""
+    return h.color.sum() / h.color.numel()
+
+
+def fwdbwd(base, camera, o, d):
+    """bench.py's fwd+bwd: scene_value_and_grad over {mass, spin} of the
+    bench loss with the depth order, at base's mass and spin, for the
+    square image's rays (o, d) of camera."""
+    from blackhole_tpu_torch.grad import fast_grad
+    from blackhole_tpu_torch.render import image
+
+    def scene_fn(p):
+        return dataclasses.replace(base, blackhole=dataclasses.replace(
+            base.blackhole, mass=p["mass"], spin=p["spin"]))
+
+    params = {"mass": base.blackhole.mass.clone(),
+              "spin": base.blackhole.spin.clone()}
+    vg = fast_grad.scene_value_and_grad(loss_of_hit, scene_fn)
+    size = math.isqrt(o.shape[0])
+    order = image.predicted_depth_order(scene_fn(params), camera, size, size)
+    return vg(params, o, d, order=order)
+
+
+def time_fwdbwd(name, base, camera, o, d):
+    _, times = _timed(lambda: fwdbwd(base, camera, o, d))
+    n = o.shape[0]
+    print(f"fwd+bwd {name} {math.isqrt(n)}^2 (2 tangents, depth order): "
+          f"{n / statistics.median(times):.1f} rays/s median of 3 "
+          f"(min {n / max(times):.1f}, max {n / min(times):.1f}; "
+          f"{[round(t, 4) for t in times]} s)")
+
+
+def check_gradients(grad_runs):
+    for name, (loss, grads) in grad_runs.items():
+        g = [float(grads["mass"]), float(grads["spin"])]
+        check(all(math.isfinite(x) for x in g),
+              f"{name} gradients are not finite: {g}")
+        print(f"gradient {name}: loss {float(loss):.9f} "
+              f"d/dmass {g[0]:.9e} d/dspin {g[1]:.9e}")
+
+
+def soft_path(dev, camera, o, d, plain_s):
+    """Phase 9: the soft path (the bench scene with softness 0.3) for the
+    square image's rays (o, d) of camera, 1024x1024 in main; the tracking
+    kernels are held to plain_s, phase 8's plain tracking pass (and its
+    ms) on every PLAIN_SAMPLE-th ray.  Returns the kernels line's two
+    tracking rows."""
+    import torch
+
+    from blackhole_tpu_torch.render import image, trace_kernel as tk
+
+    scene, _ = bench_scene(dev, softness=0.3)
+    scene45, _ = bench_scene(dev, "rkf45", softness=0.3)
+    n = o.shape[0]
+    size = math.isqrt(n)
+    tk.launches = tk.fwdgrad_launches = 0
+    tk.track_launches = tk.fwdgrad_track_launches = 0
+    t0 = time.perf_counter()
+    img = image.render_image(scene, camera, size, size)
+    grad_runs = {name: fwdbwd(base, camera, o, d)
+                 for name, base in (("rk4", scene), ("rkf45", scene45))}
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {"k1": tk.launches, "k1_track": tk.track_launches,
+                "k2": tk.fwdgrad_launches, "k2_track": tk.fwdgrad_track_launches}
+    print(f"soft path: render_image {size}^2 rk4 + scene_value_and_grad "
+          f"{size}^2 rk4 + rkf45 in {main_s:.3f} s, launches {launches}")
+    check(launches["k1_track"] >= 1 and launches["k2_track"] >= 1
+          and launches["k1"] == launches["k1_track"]
+          and launches["k2"] == launches["k2_track"],
+          f"the soft path did not run only the tracking kernels: {launches}")
+    check(img.shape == (size, size, 3) and bool(torch.isfinite(img).all()),
+          f"the soft image is not finite {size}^2 RGB")
+    print(f"soft image rk4: mean {float(img.mean()):.6f}")
+    check_gradients({f"soft {k} {size}^2": v for k, v in grad_runs.items()})
+    _, times = _timed(lambda: image.trace_rays_fast(o, d, scene))
+    print(f"trace_rays_fast soft {size}^2 rk4: "
+          f"{n / statistics.median(times):.1f} rays/s "
+          f"(median of 3: {[round(t, 4) for t in times]} s)")
+    for name, base in (("soft rk4", scene), ("soft rkf45", scene45)):
+        time_fwdbwd(name, base, camera, o, d)
+
+    # K1-track and K2-track (RK4, 2 tangents): times, bounds, and the
+    # plain tracking pass of phase 8 on every PLAIN_SAMPLE-th ray.
+    plain_planes, ms_p = plain_s
+    pick = slice(None, None, PLAIN_SAMPLE)
+    scal, inp = tk.prepare(o, d, scene)
+    args = tk.planes_args(scene)
+    runs = [_cuda_ms(lambda: tk.trace_planes(scal, inp, *args))
+            for _ in range(3)]
+    planes_k = runs[0][0]
+    ms_k = statistics.median(ms for _, ms in runs)
+    sample_k = planes_k[:, pick]
+    # K1-track's own plain version on the sample, timed; it equals the
+    # shared pass's primal bitwise (plain_tracking).
+    plain1, ms_p1 = _cuda_ms(lambda: tk.trace_planes_plain(
+        scal, inp[:, pick].contiguous(), *args))
+    same = bool(((plain1 == plain_planes[0])
+                 | (plain1.isnan() & plain_planes[0].isnan())).all())
+    check(same, "the plain tracking pass's primal is not the plain K1-track's")
+    hits = [shade(p, o[pick], d[pick], scene, inp[5][pick])
+            for p in (sample_k, plain_planes[0])]
+    k1s = parity_stats(*hits, exact=False)
+    k1s.update(track_stats(sample_k, plain_planes[0], o[pick], d[pick],
+                           scene, agree=50))
+    k1_bound = bound_ms(0, False, planes_k[2], n, track=True)
+    print(f"K1-track planes {size}^2 rk4: kernel {ms_k:.3f} ms; plain on every "
+          f"{PLAIN_SAMPLE}th ray {ms_p1:.3f} ms")
+    print_bound(f"K1-track {size}^2 rk4", ms_k, k1_bound)
+    print(f"parity K1-track {size}^2 rk4 (every {PLAIN_SAMPLE}th ray): "
+          f"{json.dumps(k1s)}")
+    tangents = mass_spin_tangents(scene)
+    k2_planes, ms_k2 = time_fwdgrad(o, d, scene, tangents)
+    k2s = fwdgrad_stats(
+        sample_hits(o, d, scene, tangents,
+                    (k2_planes[0][:, pick], k2_planes[1][:, :, pick]), pick),
+        sample_hits(o, d, scene, tangents, plain_planes, pick), exact=False,
+        agree=same_sample(k2_planes[0][:, pick], plain_planes[0]))
+    k2s.update(track_stats(k2_planes[0][:, pick], plain_planes[0], o[pick],
+                           d[pick], scene, agree=50))
+    k2_bound = bound_ms(2, False, k2_planes[0][2], n, track=True)
+    print(f"K2-track planes {size}^2 rk4 (2 tangents): kernel {ms_k2:.3f} ms "
+          f"({ms_k2 / ms_k:.2f}x K1-track); plain on every {PLAIN_SAMPLE}th "
+          f"ray {ms_p:.3f} ms (phase 8's pass)")
+    print_bound(f"K2-track {size}^2 rk4", ms_k2, k2_bound)
+    print(f"parity K2-track {size}^2 rk4 (every {PLAIN_SAMPLE}th ray): "
+          f"{json.dumps(k2s)}")
+    # RKF45: the tracking kernels' times and bounds (their plain versions
+    # are held at 64x64, phases 3-4).
+    scal45, inp45 = tk.prepare(o, d, scene45)
+    args45 = tk.planes_args(scene45)
+    runs = [_cuda_ms(lambda: tk.trace_planes(scal45, inp45, *args45))
+            for _ in range(3)]
+    ms45 = statistics.median(ms for _, ms in runs)
+    print(f"K1-track planes {size}^2 rkf45: kernel {ms45:.3f} ms")
+    print_bound(f"K1-track {size}^2 rkf45", ms45,
+                bound_ms(0, True, runs[0][0][2], n, track=True))
+    k245_planes, ms245 = time_fwdgrad(o, d, scene45,
+                                      mass_spin_tangents(scene45))
+    print(f"K2-track planes {size}^2 rkf45 (2 tangents): kernel "
+          f"{ms245:.3f} ms ({ms245 / ms45:.2f}x K1-track)")
+    print_bound(f"K2-track {size}^2 rkf45", ms245,
+                bound_ms(2, True, k245_planes[0][2], n, track=True))
+    rows = []
+    for name, ms, plain_ms, bound, err, n_launch in (
+            ("trace_planes[track]", ms_k, ms_p1, k1_bound, k1s["color_max"],
+             launches["k1_track"]),
+            ("trace_planes_fwdgrad[track]", ms_k2, ms_p, k2_bound,
+             max(k2s["color_max"], k2s["tangent_max"]),
+             launches["k2_track"])):
+        rows.append({"name": name, **KERNELS[name], "launches": n_launch,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "plain_every": PLAIN_SAMPLE, "bound_ms": bound[0],
+                     "bound_by": bound[1], "library_ms": None})
+    return rows
+
+
+def check_fidelity(dev, size=256, steps=800, softness=0.3):
+    """Phase 10: d(MSE)/d(mass) by torch.func.jvp through trace_rays_fast
+    (K2-track with one tangent) against central finite differences, at
+    mass 1.03 and 0.98 (the JAX package's TPU pin)."""
+    import torch
+
+    from blackhole_tpu_torch.geom.types import (
+        BlackHole, Camera, Disk, Scene, SimConfig,
+    )
+    from blackhole_tpu_torch.grad import fast_grad
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import image
+
+    camera = Camera.create(position=(0.0, -35.0, 12.0),
+                           direction=(0.0, 35.0, -12.0), up=(0.0, 0.0, 1.0),
+                           fov_deg=22.0, device=dev)
+    o, d = cam.generate_rays(camera, size, size)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    base = Scene(BlackHole.create(1.0, 0.9, device=dev),
+                 Disk.create(6.0, 20.0, device=dev),
+                 SimConfig.create(time_step=0.1, max_ray_distance=150.0,
+                                  max_steps=steps, shadow_softness=softness,
+                                  device=dev),
+                 disk_enabled=True)
+
+    def render(mass):
+        s = dataclasses.replace(base, blackhole=dataclasses.replace(
+            base.blackhole, mass=mass))
+        return fast_grad.clip_color_tangent(
+            image.trace_rays_fast(o, d, s)).color
+
+    target = render(torch.tensor(1.0, device=dev))
+
+    def loss(mass):
+        return 0.5 * torch.mean((render(mass) - target) ** 2)
+
+    out = {}
+    for m0, eps in ((1.03, 3e-3), (0.98, 3e-3)):
+        m = torch.tensor(m0, device=dev)
+        _, ad = torch.func.jvp(loss, (m,), (torch.ones_like(m),))
+        fd = (float(loss(m + eps)) - float(loss(m - eps))) / (2 * eps)
+        out[f"m0={m0}"] = {"ad": float(ad), "fd": fd,
+                           "ad_over_fd": float(ad) / fd}
+        check(abs(float(ad) - fd) <= FIDELITY_RTOL * abs(fd),
+              f"AD/FD fidelity at mass {m0}: {out}")
+    return out
+
+
+def check_fit(dev, size=256, steps=3, learning_rate=1e-2):
+    """Phase 11: fit_forward (RKF45 tol 1e-6, softness 0.3) from mass
+    1.03 to a target rendered at 1.0; |log_mass| must shrink at every
+    step (the gradient's sign is right) and the losses be finite."""
+    import torch
+
+    from blackhole_tpu_torch.grad import inverse
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import image
+
+    target_scene, camera = bench_scene(dev, "rkf45", softness=0.3)
+    o, d = cam.generate_rays(camera, size, size)
+    target = image.trace_rays_fast(o.reshape(-1, 3), d.reshape(-1, 3),
+                                   target_scene).color.reshape(size, size, 3)
+    init = dataclasses.replace(target_scene, blackhole=dataclasses.replace(
+        target_scene.blackhole, mass=torch.tensor(1.03, device=dev)))
+    log_mass = [math.log(1.03)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene, _, losses = inverse.fit_forward(
+        target, init, camera, size, size, steps=steps,
+        learning_rate=learning_rate,
+        callback=lambda i, p, loss: log_mass.append(float(p["log_mass"])))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    out = {"losses": losses, "log_mass": log_mass, "ms_per_step": ms,
+           "mass": float(scene.blackhole.mass)}
+    check(all(math.isfinite(x) for x in losses), f"fit losses: {out}")
+    check(all(abs(b) < abs(a) for a, b in zip(log_mass, log_mass[1:])),
+          f"fit_forward did not move log_mass toward 0: {out}")
+    return out
+
+
+def print_ptxas(libs):
+    """ptxas's registers and spills of every kernel variant built."""
+    for path in libs.values():
+        variant = "?"
+        for line in path.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"(trace_kernel|fwdgrad_kernel)I(Li\d+E)?"
+                          r"Lb(\d)ELb(\d)ELb(\d)E", line)
+            if m and "Compiling entry function" in line:
+                tan = m[2][2:-1] if m[2] else "0"
+                variant = (f"{m[1]} tangents={tan} disk={m[3]} "
+                           f"adaptive={m[4]} track={m[5]}")
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {variant}: {line.split(':', 1)[-1].strip()}")
 
 
 def main() -> int:
@@ -562,6 +1144,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 2")
     # 2. Build the kernels from this checkout's sources.
     from blackhole_tpu_torch import cuda_lib
 
@@ -571,26 +1154,24 @@ def main() -> int:
         cuda_lib.load(name)
     print(f"build: {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for path in libs.values():
-        variant = "?"
-        for line in path.with_suffix(".log").read_text().splitlines():
-            m = re.search(r"(trace_kernel|fwdgrad_kernel)I(Li\d+E)?"
-                          r"Lb(\d)ELb(\d)E", line)
-            if m and "Compiling entry function" in line:
-                tan = m[2][2:-1] if m[2] else "0"
-                variant = f"{m[1]} tangents={tan} disk={m[3]} adaptive={m[4]}"
-            elif "registers" in line or "spill" in line:
-                print(f"ptxas {variant}: {line.split(':', 1)[-1].strip()}")
+    print_ptxas(libs)
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 3")
     # 3. K1 against plain on the card.
     for stats in check_kernel_vs_plain(dev):
         print(f"parity K1: {json.dumps(stats)}")
 
     print(f"[{time.perf_counter() - T0:.1f} s] phase 4")
     # 4. K2 against plain on the card.
-    fwd_stats = check_fwdgrad_vs_plain(dev)
+    plains = {}
+    fwd_stats = check_fwdgrad_vs_plain(dev, plains=plains)
     for stats in fwd_stats:
         print(f"parity K2: {json.dumps(stats)}")
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 3-4 (track)")
+    # 3-4. The tracking variants against plain on the card.
+    for stats in check_track_vs_plain(dev, plains=plains):
+        print(f"parity {stats['kernel']}: {json.dumps(stats)}")
 
     print(f"[{time.perf_counter() - T0:.1f} s] phase 5")
     # 5. K3: jvp through the trace.
@@ -668,28 +1249,9 @@ def main() -> int:
 
     print(f"[{time.perf_counter() - T0:.1f} s] phase 8")
     # 8. The gradient half of the main path (bench.py's fwd+bwd).
-    def loss_of_hit(h):
-        return h.color.sum() / h.color.numel()
-
-    def scene_fn_of(base):
-        def scene_fn(p):
-            return dataclasses.replace(base, blackhole=dataclasses.replace(
-                base.blackhole, mass=p["mass"], spin=p["spin"]))
-        return scene_fn
-
-    params = {"mass": torch.tensor(1.0, device=dev),
-              "spin": torch.tensor(0.9, device=dev)}
-
-    def fwdbwd(base):
-        scene_fn = scene_fn_of(base)
-        vg = fast_grad.scene_value_and_grad(loss_of_hit, scene_fn)
-        order = image.predicted_depth_order(scene_fn(params), camera, 1024,
-                                            1024)
-        return vg(params, o, d, order=order)
-
     trace_kernel.launches = trace_kernel.fwdgrad_launches = 0
     t0 = time.perf_counter()
-    grad_runs = {name: fwdbwd(base)
+    grad_runs = {name: fwdbwd(base, camera, o, d)
                  for name, base in (("rk4", scene), ("rkf45", scene45))}
     torch.cuda.synchronize()
     grad_s = time.perf_counter() - t0
@@ -698,21 +1260,25 @@ def main() -> int:
           f"{grad_s:.3f} s, launches K1 {grad_launches[0]} K2 "
           f"{grad_launches[1]}")
     check(grad_launches[1] >= 1, "the gradient path launched no K2")
-    for name, (loss, grads) in grad_runs.items():
-        g = [float(grads["mass"]), float(grads["spin"])]
-        check(all(math.isfinite(x) for x in g),
-              f"{name} gradients are not finite: {g}")
-        print(f"gradient {name} 1024^2: loss {float(loss):.9f} "
-              f"d/dmass {g[0]:.9e} d/dspin {g[1]:.9e}")
+    check_gradients({f"{k} 1024^2": v for k, v in grad_runs.items()})
     for name, base in (("rk4", scene), ("rkf45", scene45)):
-        _, times = _timed(lambda: fwdbwd(base))
-        print(f"fwd+bwd {name} 1024^2 (2 tangents, depth order): "
-              f"{n / statistics.median(times):.1f} rays/s median of 3 "
-              f"(min {n / max(times):.1f}, max {n / min(times):.1f}; "
-              f"{[round(t, 4) for t in times]} s)")
+        time_fwdbwd(name, base, camera, o, d)
 
-    k2 = check_fwdgrad_main_shapes(o, d, scene, scene45, planes_k, ms_k)
-    print(f"[{time.perf_counter() - T0:.1f} s] phase 8 done")
+    k2, plain_s = check_fwdgrad_main_shapes(o, d, scene, scene45, planes_k,
+                                            ms_k)
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 9")
+    # 9. The soft path at 1024^2.
+    track_rows = soft_path(dev, camera, o, d, plain_s)
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 10")
+    # 10. Gradient fidelity of the soft boundary.
+    print(f"fidelity AD/FD 256^2 800 steps: {json.dumps(check_fidelity(dev))}")
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 11")
+    # 11. fit_forward.
+    print(f"fit_forward 256^2 rkf45: {json.dumps(check_fit(dev))}")
+    print(f"[{time.perf_counter() - T0:.1f} s] done")
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -722,6 +1288,7 @@ def main() -> int:
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "trace_planes_fwdgrad", **KERNELS["trace_planes_fwdgrad"],
          **k2, "launches": grad_launches[1]},
+        *track_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,8 @@ from blackhole_tpu_torch.render import camera as cam
 
 from test_torch_fwdgrad_slice import jax_loss, parity_case, torch_loss
 
+torch.set_num_threads(1)  # see tests/test_torch_step.py
+
 P0 = {"mass": 1.0, "cam_y": -30.0}
 
 

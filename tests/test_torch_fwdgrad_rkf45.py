@@ -32,6 +32,8 @@ from test_torch_fwdgrad_slice import (
     torch_loss, torch_params, torch_scene_fn,
 )
 
+torch.set_num_threads(1)  # see tests/test_torch_step.py
+
 
 def test_scene_value_and_grad_rkf45_matches_jax():
     scene, _, o, d = parity_case("rkf45", max_steps=192)

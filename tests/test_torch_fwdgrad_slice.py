@@ -44,6 +44,8 @@ from blackhole_tpu_torch.grad import fast_grad
 from blackhole_tpu_torch.render import camera as cam
 from blackhole_tpu_torch.render import image, trace_kernel
 
+torch.set_num_threads(1)  # see tests/test_torch_step.py
+
 
 def parity_case(integrator="rk4", max_steps=48, n=64, time_step=0.1):
     """The JAX scene and camera and the first n rays of the 32x32 image."""

@@ -27,9 +27,12 @@ from blackhole_tpu.render import pallas_kernel
 from blackhole_tpu_torch.geom.types import Hit
 from blackhole_tpu_torch.grad import fast_grad
 from blackhole_tpu_torch.integrate import sensitivity
+from blackhole_tpu_torch import tangent_rules
 from blackhole_tpu_torch.render import trace_kernel
 
 from test_torch_step import TOLERANCE, _random_state
+
+torch.set_num_threads(1)  # see tests/test_torch_step.py
 
 _K = trace_kernel
 # Tangent slots: both sides take the same derivative of the same float32
@@ -59,16 +62,16 @@ _TANGENT_TOL = {
 _ZERO_TANGENT = (_K.S_STEPS, _K.S_RESULT)
 
 
-def _tangents(state, seed, n_tan=2, scale=1.0):
-    """Random float32 tangent directions of the state (zero for steps
-    and result, whose tangents are exactly 0 in the kernel) and of the
-    13 scalars (dL per ray)."""
+def _tangents(state, seed, n_tan=2, scale=1.0, n_slots=_K.N_STATE):
+    """Random float32 tangent directions of the state's first n_slots
+    slots (zero for steps and result, whose tangents are exactly 0 in the
+    kernel) and of the 13 scalars (dL per ray)."""
     rng = np.random.default_rng(seed)
     n = state[0].shape[0]
     dstates, dscals = [], []
     for _ in range(n_tan):
         ds = [rng.normal(0, scale, n).astype(np.float32)
-              for _ in range(_K.N_STATE)]
+              for _ in range(n_slots)]
         for s in _ZERO_TANGENT:
             ds[s] = np.zeros(n, np.float32)
         dsc = [np.float32(rng.normal(0, 1.0)) for _ in range(_K.N_SCAL)]
@@ -78,7 +81,8 @@ def _tangents(state, seed, n_tan=2, scale=1.0):
     return dstates, dscals
 
 
-def _jax_step_jvp(state, scal, dstates, dscals, disk, adaptive):
+def _jax_step_jvp(state, scal, dstates, dscals, disk, adaptive,
+                  track=False):
     """jax.jvp of the differentiated kernels' step, per direction, on
     (32, 128) tiles (ray_ndim 2, as inside the kernel)."""
     def tile(x):
@@ -87,7 +91,7 @@ def _jax_step_jvp(state, scal, dstates, dscals, disk, adaptive):
 
     def f(st, sc):
         return jsens.tangent_guard(2, pallas_kernel._step_update(
-            st, sc, disk, adaptive, slave=True))
+            st, sc, disk, adaptive, track=track, slave=True))
 
     st = tuple(tile(s) for s in state)
     sc = tuple(tile(s) for s in scal)
@@ -99,7 +103,8 @@ def _jax_step_jvp(state, scal, dstates, dscals, disk, adaptive):
     return [np.asarray(x).reshape(-1) for x in new], dnews
 
 
-def _torch_step_jvp(state, scal, dstates, dscals, disk, adaptive):
+def _torch_step_jvp(state, scal, dstates, dscals, disk, adaptive,
+                    track=False):
     def t(x):
         return torch.from_numpy(np.array(x, np.float32))
 
@@ -108,6 +113,7 @@ def _torch_step_jvp(state, scal, dstates, dscals, disk, adaptive):
         [tuple(t(x) for x in ds) for ds in dstates],
         tuple(t(s) for s in scal),
         [tuple(t(x) for x in dsc) for dsc in dscals], disk, adaptive,
+        track,
     )
     return ([x.numpy() for x in new],
             [[x.numpy() for x in dn] for dn in dnews])
@@ -187,7 +193,8 @@ def test_step_update_jvp_ties_match_jax(adaptive):
 
 def test_tie_rules_match_jax():
     """max, min, clip (constant and tensor bounds) and abs at ties, at
-    NaN and off them: the port's helpers against jax.jvp."""
+    NaN and off them: the port's helpers (tangent_rules) against
+    jax.jvp."""
     nan = np.nan
     a = np.array([1.0, 2.0, 0.5, nan, 1.0, 0.0, -0.0, 5.0, 0.05, 20.0],
                  np.float32)
@@ -195,16 +202,16 @@ def test_tie_rules_match_jax():
                  np.float32)
     da = np.linspace(1.0, 2.0, a.size).astype(np.float32)
     db = np.linspace(-3.0, 4.0, a.size).astype(np.float32)
-    K = trace_kernel
+    K = tangent_rules
     cases = [
-        (lambda x, y: jnp.maximum(x, y), lambda x, y: K._max(x, y)),
-        (lambda x, y: jnp.minimum(x, y), lambda x, y: K._min(x, y)),
-        (lambda x, y: jnp.maximum(x, 1.0), lambda x, y: K._max(x, 1.0)),
+        (lambda x, y: jnp.maximum(x, y), lambda x, y: K.jmax(x, y)),
+        (lambda x, y: jnp.minimum(x, y), lambda x, y: K.jmin(x, y)),
+        (lambda x, y: jnp.maximum(x, 1.0), lambda x, y: K.jmax(x, 1.0)),
         (lambda x, y: jnp.clip(x, 0.05, 20.0),
-         lambda x, y: K._clip(x, 0.05, 20.0)),
+         lambda x, y: K.jclip(x, 0.05, 20.0)),
         (lambda x, y: jnp.clip(x, y * 0.01, y),
-         lambda x, y: K._clip(x, y * 0.01, y)),
-        (lambda x, y: jnp.abs(x) + y, lambda x, y: K._abs(x) + y),
+         lambda x, y: K.jclip(x, y * 0.01, y)),
+        (lambda x, y: jnp.abs(x) + y, lambda x, y: K.jabs(x) + y),
     ]
     for jf, tf in cases:
         ref = jax.jvp(jf, (jnp.asarray(a), jnp.asarray(b)),

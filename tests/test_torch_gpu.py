@@ -2,7 +2,8 @@
 
 Repeats chip_smoke.py's checks at 32x32: K1 against its plain PyTorch
 version on the same CUDA inputs under the parity contracts, K2 against
-its plain version (RK4: K2's contract, chip_smoke.fwdgrad_stats),
+its plain version (RK4: K2's contract, chip_smoke.fwdgrad_stats), the
+tracking variants K1-track and K2-track against theirs,
 depth-sorted traces (forward and fwdgrad) bitwise equal to raster ones,
 and torch.func.jvp of a trace launching K2 once with one tangent (and a
 second derivative through it raising).  Run
@@ -50,6 +51,22 @@ def test_fwdgrad_kernel_matches_plain_on_card(cuda):
     assert len(stats) == 3
     assert all(s["codes_vs_k1"] == 0 for s in stats)
     assert trace_kernel.fwdgrad_launches == before + 3
+
+
+def test_track_kernels_match_plain_on_card(cuda):
+    """K1-track and K2-track (2 tangents and 1) against their plain
+    versions at the soft parity cases, RK4 (chip_smoke phases 3-4,
+    track; the RKF45 contracts need the 64x64 sample)."""
+    from blackhole_tpu_torch.render import trace_kernel
+
+    before = (trace_kernel.track_launches,
+              trace_kernel.fwdgrad_track_launches)
+    stats = chip_smoke.check_track_vs_plain(cuda, size=32,
+                                            integrators=("rk4",))
+    assert len(stats) == 6
+    assert all(s.get("codes_vs_k1", 0) == 0 for s in stats)
+    assert trace_kernel.track_launches == before[0] + 2
+    assert trace_kernel.fwdgrad_track_launches == before[1] + 4
 
 
 def test_jvp_of_trace_launches_k2_once_with_one_tangent(cuda, monkeypatch):

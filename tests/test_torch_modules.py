@@ -30,6 +30,8 @@ from blackhole_tpu_torch.metrics import derived, kerr
 from blackhole_tpu_torch.render import camera as cam
 from blackhole_tpu_torch.render import geodesic, shading
 
+torch.set_num_threads(1)  # see tests/test_torch_step.py
+
 ROOT = Path(__file__).resolve().parent.parent
 F32 = np.float32
 
@@ -246,8 +248,9 @@ def test_scene_from_reference_round_trips():
 
 
 def test_port_never_imports_jax():
-    """Importing the port and rendering 8x8 leaves jax out of sys.modules,
-    and no module of the package names jax in an import."""
+    """Importing the port, rendering 8x8 and taking a soft fit_forward
+    step leaves jax out of sys.modules, and no module of the package
+    names jax in an import."""
     code = (
         "import sys\n"
         "from blackhole_tpu_torch.geom.types import "
@@ -258,6 +261,12 @@ def test_port_never_imports_jax():
         "              SimConfig.create(max_steps=40, **cpu))\n"
         "img = image.render_image(scene, Camera.create(**cpu), 8, 8)\n"
         "assert img.shape == (8, 8, 3)\n"
+        "import dataclasses\n"
+        "from blackhole_tpu_torch.grad import inverse\n"
+        "soft = dataclasses.replace(scene, config=dataclasses.replace(\n"
+        "    scene.config, shadow_softness=0.3))\n"
+        "inverse.fit_forward(img, soft, Camera.create(**cpu), 8, 8, "
+        "steps=1)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )

@@ -24,6 +24,16 @@ import torch
 from blackhole_tpu.render import pallas_kernel
 from blackhole_tpu_torch.render import trace_kernel
 
+# One intra-op thread for torch in these processes, which run XLA:CPU
+# too.  With more, a process's first multi-threaded torch call after XLA
+# had run came back wrong in the worker thread's share: in 2 of 40 fresh
+# processes under a parallel test run, step_update's path length, chord
+# direction and hit position differed on states 2048.. of 4096 (torch
+# splits its vectorised sqrt into 2048-element chunks) by up to 4% of a
+# chord, while a second call in the same process was right; none of 40
+# processes with one thread, and none of 40 without XLA, went wrong.
+torch.set_num_threads(1)
+
 CSRC = Path(trace_kernel.__file__).resolve().parent.parent / "csrc"
 
 _K = trace_kernel
@@ -133,10 +143,14 @@ _HOST_LOOP = r"""
 #include "dual.cuh"
 extern "C" void bh_trace_planes_host(const float* scal, const float* inp,
                                      float* out, long long n, int max_steps,
-                                     int disk_on, int adaptive) {
+                                     int disk_on, int adaptive, int track) {
   const bh::Scal s = bh::load_scal(scal);
   for (long long i = 0; i < n; ++i) {
-    if (disk_on && adaptive)
+    if (track && adaptive)
+      bh::trace_ray<true, true, true>(inp, out, n, i, s, max_steps);
+    else if (track)
+      bh::trace_ray<true, false, true>(inp, out, n, i, s, max_steps);
+    else if (disk_on && adaptive)
       bh::trace_ray<true, true>(inp, out, n, i, s, max_steps);
     else if (disk_on)
       bh::trace_ray<true, false>(inp, out, n, i, s, max_steps);
@@ -147,36 +161,43 @@ extern "C" void bh_trace_planes_host(const float* scal, const float* inp,
   }
 }
 
-// K2 with two tangents (Dual<2>), as trace_fwdgrad.cu runs it.
+// K2 with one or two tangents (Dual<N>), as trace_fwdgrad.cu runs it.
+template <typename F, int N>
+void fwdgrad_rays_n(const float* scal, const float* dscal, const float* inp,
+                    const float* dinp, float* out, long long n,
+                    int max_steps, int disk_on, int adaptive, int track) {
+  for (long long i = 0; i < n; ++i) {
+#define BH_RAY(D, A, T)                                                    \
+    bh::trace_ray_fwdgrad<N, D, A, T, F>(scal, dscal, inp, dinp, out, n, \
+                                         i, max_steps)
+    if (track && adaptive) BH_RAY(true, true, true);
+    else if (track) BH_RAY(true, false, true);
+    else if (disk_on && adaptive) BH_RAY(true, true, false);
+    else if (disk_on) BH_RAY(true, false, false);
+    else if (adaptive) BH_RAY(false, true, false);
+    else BH_RAY(false, false, false);
+#undef BH_RAY
+  }
+}
+
 template <typename F>
 void fwdgrad_rays(const float* scal, const float* dscal, const float* inp,
                   const float* dinp, float* out, long long n, int max_steps,
-                  int disk_on, int adaptive, int n_tan) {
-  for (long long i = 0; i < n; ++i) {
-#define BH_RAY(N, D, A)                                                    \
-    bh::trace_ray_fwdgrad<N, D, A, F>(scal, dscal, inp, dinp, out, n, i,  \
-                                      max_steps)
-    if (n_tan == 1) {
-      if (disk_on && adaptive) BH_RAY(1, true, true);
-      else if (disk_on) BH_RAY(1, true, false);
-      else if (adaptive) BH_RAY(1, false, true);
-      else BH_RAY(1, false, false);
-    } else {
-      if (disk_on && adaptive) BH_RAY(2, true, true);
-      else if (disk_on) BH_RAY(2, true, false);
-      else if (adaptive) BH_RAY(2, false, true);
-      else BH_RAY(2, false, false);
-    }
-#undef BH_RAY
-  }
+                  int disk_on, int adaptive, int n_tan, int track) {
+  if (n_tan == 1)
+    fwdgrad_rays_n<F, 1>(scal, dscal, inp, dinp, out, n, max_steps, disk_on,
+                         adaptive, track);
+  else
+    fwdgrad_rays_n<F, 2>(scal, dscal, inp, dinp, out, n, max_steps, disk_on,
+                         adaptive, track);
 }
 
 extern "C" void bh_trace_planes_fwdgrad_host(
     const float* scal, const float* dscal, const float* inp,
     const float* dinp, float* out, long long n, int max_steps, int disk_on,
-    int adaptive) {
+    int adaptive, int track) {
   fwdgrad_rays<float>(scal, dscal, inp, dinp, out, n, max_steps, disk_on,
-                      adaptive, 2);
+                      adaptive, 2, track);
 }
 
 // A float that counts the floating-point operations the kernels' source
@@ -272,44 +293,51 @@ D<N> jmin(const D<N>& a, float c) {
 }  // namespace cnt
 
 // K1's loop on the counting type; out: each ray's steps.
-template <bool D, bool A>
+template <bool D, bool A, bool T>
 void k1_count_ray(const float* scal, const float* inp, float* out,
                   long long n, long long i, int max_steps) {
   using cnt::Flop;
+  constexpr int NS = bh::n_state(T);
   bh::ScalT<Flop> s;
   Flop* sv[bh::N_SCAL];
   bh::scal_slots(s, sv);
   for (int k = 0; k < bh::N_SCAL; ++k) *sv[k] = Flop(scal[k]);
-  bh::StateT<Flop> S;
-  Flop* slot[bh::N_STATE];
+  bh::StateT<Flop, T> S;
+  Flop* slot[NS];
   bh::state_slots(S, slot);
-  float x[bh::N_INP], init[bh::N_STATE];
+  float x[bh::N_INP], init[NS];
   for (int k = 0; k < bh::N_INP; ++k) x[k] = inp[k * n + i];
   bh::init_slots(x, scal[3], bh::ACTIVE, init);
-  for (int k = 0; k < bh::N_STATE; ++k) *slot[k] = Flop(init[k]);
+  if constexpr (T) bh::init_track_slots(x, 1e9f, init + bh::N_STATE);
+  for (int k = 0; k < NS; ++k) *slot[k] = Flop(init[k]);
   const Flop L(x[5]);
   for (int it = 0; it < max_steps && S.result == bh::ACTIVE; ++it)
-    bh::step_update<Flop, D, A>(S, L, s);
+    bh::step_update<Flop, D, A, T>(S, L, s);
   out[i] = S.steps.v;
 }
 
 // Operations over whole traces: n_tan 0 counts K1 (out: (n,) steps),
-// n_tan 1 or 2 counts K2 (out: ((1 + n_tan) 15, n) planes).
+// n_tan 1 or 2 counts K2 (out: ((1 + n_tan) P, n) planes).
 extern "C" long long bh_count_flops(const float* scal, const float* dscal,
                                     const float* inp, const float* dinp,
                                     float* out, long long n, int max_steps,
-                                    int disk_on, int adaptive, int n_tan) {
+                                    int disk_on, int adaptive, int n_tan,
+                                    int track) {
   cnt::flops = cnt::excess = 0;
   if (n_tan == 0) {
+#define BH_RAY(D, A, T) k1_count_ray<D, A, T>(scal, inp, out, n, i, max_steps)
     for (long long i = 0; i < n; ++i) {
-      if (disk_on && adaptive) k1_count_ray<true, true>(scal, inp, out, n, i, max_steps);
-      else if (disk_on) k1_count_ray<true, false>(scal, inp, out, n, i, max_steps);
-      else if (adaptive) k1_count_ray<false, true>(scal, inp, out, n, i, max_steps);
-      else k1_count_ray<false, false>(scal, inp, out, n, i, max_steps);
+      if (track && adaptive) BH_RAY(true, true, true);
+      else if (track) BH_RAY(true, false, true);
+      else if (disk_on && adaptive) BH_RAY(true, true, false);
+      else if (disk_on) BH_RAY(true, false, false);
+      else if (adaptive) BH_RAY(false, true, false);
+      else BH_RAY(false, false, false);
     }
+#undef BH_RAY
   } else {
     fwdgrad_rays<cnt::Flop>(scal, dscal, inp, dinp, out, n, max_steps,
-                            disk_on, adaptive, n_tan);
+                            disk_on, adaptive, n_tan, track);
   }
   return cnt::flops;
 }
@@ -336,19 +364,19 @@ def host_twin(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     lib.bh_trace_planes_host.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
     lib.bh_trace_planes_host.restype = None
     lib.bh_trace_planes_fwdgrad_host.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
     ]
     lib.bh_trace_planes_fwdgrad_host.restype = None
     lib.bh_count_flops.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
     lib.bh_count_flops.restype = ctypes.c_longlong
     lib.bh_count_excess.argtypes = []
@@ -356,7 +384,7 @@ def host_twin(tmp_path_factory):
     return lib
 
 
-def _twin_case(integrator):
+def _twin_case(integrator, softness=0.0):
     from blackhole_tpu_torch.geom.types import (
         BlackHole, Camera, Disk, Scene, SimConfig,
     )
@@ -366,7 +394,8 @@ def _twin_case(integrator):
         BlackHole.create(1.0, 0.9, device="cpu"),
         Disk.create(6.0, 20.0, device="cpu"),
         SimConfig.create(time_step=0.1, max_ray_distance=80.0,
-                         max_steps=250, integrator=integrator, device="cpu"),
+                         max_steps=250, integrator=integrator,
+                         shadow_softness=softness, device="cpu"),
     )
     camera = Camera.create(position=(0.0, -30.0, 8.0),
                            direction=(0.0, 30.0, -8.0), up=(0.0, 0.0, 1.0),
@@ -376,23 +405,33 @@ def _twin_case(integrator):
 
 
 @pytest.mark.parametrize("integrator", ["rk4", "rkf45"])
-@pytest.mark.parametrize("disk", [True, False], ids=["disk", "no-disk"])
-def test_cuda_source_host_twin_matches_plain(host_twin, integrator, disk):
+@pytest.mark.parametrize("disk,track", [(True, False), (False, False),
+                                        (True, True)],
+                         ids=["disk", "no-disk", "disk-track"])
+def test_cuda_source_host_twin_matches_plain(host_twin, integrator, disk,
+                                             track):
     """RK4: result codes and steps equal, every plane within 1e-4
     (positions up to 80 carry a few ulp of sqrt rounding: torch's CPU
     sqrt is not always correctly rounded, glibc's is).  RKF45: the
     parity contract, since the accept/reject cascade turns an ulp of
     log/exp rounding into another step sequence for near-critical rays:
     at most n/500 result codes differ, and the shaded colours of agreeing
-    non-MAX_STEPS rays agree in mean (< 2e-3) and p99 (< 3e-2)."""
+    non-MAX_STEPS rays agree in mean (< 2e-3) and p99 (< 3e-2).  track:
+    the TRACK build's 22 planes (softness 0.3 for the shading), whose
+    tracking planes are live on rays on both sides of the disk plane."""
     adaptive = integrator == "rkf45"
-    scene, scal, inp = _twin_case(integrator)
+    scene, scal, inp = _twin_case(integrator, 0.3 if track else 0.0)
     n = inp.shape[1]
-    plain = trace_kernel.trace_planes_plain(scal, inp, disk, 250, adaptive)
-    twin = torch.empty((trace_kernel.N_OUT_PLANES, n), dtype=torch.float32)
+    plain = trace_kernel.trace_planes_plain(scal, inp, disk, 250, adaptive,
+                                            track)
+    twin = torch.empty((trace_kernel.n_out(track), n), dtype=torch.float32)
     host_twin.bh_trace_planes_host(scal.data_ptr(), inp.data_ptr(),
                                    twin.data_ptr(), n, 250, int(disk),
-                                   int(adaptive))
+                                   int(adaptive), int(track))
+    if track:
+        tracked = plain[15] < 1e9
+        assert bool((tracked & (plain[18] > 0)).any())
+        assert bool((tracked & (plain[18] < 0)).any())
     if not adaptive:
         np.testing.assert_array_equal(twin[0].numpy(), plain[0].numpy())
         np.testing.assert_array_equal(twin[2].numpy(), plain[2].numpy())
@@ -416,7 +455,7 @@ def test_cuda_source_host_twin_matches_plain(host_twin, integrator, disk):
 
 
 def _fwdgrad_case(integrator, disk, size=16, time_step=0.5, max_steps=80,
-                  max_dist=40.0):
+                  max_dist=40.0, softness=0.0):
     """The parity camera's rays at the wide step and a path budget of 40
     (rays retire within 80 steps on the disk or the budget), with the
     tangents d/dmass and d/dspin of prepare's planes."""
@@ -429,7 +468,8 @@ def _fwdgrad_case(integrator, disk, size=16, time_step=0.5, max_steps=80,
     scene = Scene(
         BlackHole.create(1.0, 0.9, **cpu), Disk.create(6.0, 20.0, **cpu),
         SimConfig.create(time_step=time_step, max_ray_distance=max_dist,
-                         max_steps=max_steps, integrator=integrator, **cpu),
+                         max_steps=max_steps, integrator=integrator,
+                         shadow_softness=softness, **cpu),
         disk_enabled=disk,
     )
     camera = Camera.create(position=(0.0, -30.0, 8.0),
@@ -453,10 +493,13 @@ def _fwdgrad_case(integrator, disk, size=16, time_step=0.5, max_steps=80,
     return scene, scal, dscal, inp, dinp, max_steps
 
 
-@pytest.mark.parametrize("integrator,disk", [("rk4", True), ("rk4", False),
-                                             ("rkf45", True)],
-                         ids=["rk4-disk", "rk4-no-disk", "rkf45-disk"])
-def test_dual_host_twin_matches_plain(host_twin, integrator, disk):
+@pytest.mark.parametrize("integrator,disk,track",
+                         [("rk4", True, False), ("rk4", False, False),
+                          ("rkf45", True, False), ("rk4", True, True),
+                          ("rkf45", True, True)],
+                         ids=["rk4-disk", "rk4-no-disk", "rkf45-disk",
+                              "rk4-disk-track", "rkf45-disk-track"])
+def test_dual_host_twin_matches_plain(host_twin, integrator, disk, track):
     """csrc's trace_ray_fwdgrad on Dual<2> (g++, no FMA) against
     trace_planes_fwdgrad_plain.  RK4: result codes and steps equal; the
     tangent planes within 1e-4 (|plain| + the largest |plain| of their
@@ -465,26 +508,38 @@ def test_dual_host_twin_matches_plain(host_twin, integrator, disk):
     a few ulp per operation (measured 2e-5).  RKF45: the distribution
     contract on the primal, as for the forward kernel: the
     accept/reject cascade turns an ulp of log/exp into another step
-    sequence."""
+    sequence.  track: the TRACK build with its 22 planes per set, min_az
+    with the lengths, the tracked position and direction with theirs;
+    under RKF45 the colours are compared on the rays whose step counts
+    agree too, since min_az is a minimum over the sampled points and
+    another step sequence samples others (at this wide step a ray one
+    step apart moves its min_az by up to 0.8: measured colour gaps up to
+    0.56 on 2 of 256 rays)."""
     adaptive = integrator == "rkf45"
-    scene, scal, dscal, inp, dinp, steps = _fwdgrad_case(integrator, disk)
+    scene, scal, dscal, inp, dinp, steps = _fwdgrad_case(
+        integrator, disk, softness=0.3 if track else 0.0)
     n = inp.shape[1]
+    p = trace_kernel.n_out(track)
     out_p, dout_p = trace_kernel.trace_planes_fwdgrad_plain(
-        scal, dscal, inp, dinp, disk, steps, adaptive)
-    twin = torch.empty((3 * trace_kernel.N_OUT_PLANES, n))
+        scal, dscal, inp, dinp, disk, steps, adaptive, track)
+    twin = torch.empty((3 * p, n))
     host_twin.bh_trace_planes_fwdgrad_host(
         scal.data_ptr(), dscal.data_ptr(), inp.data_ptr(), dinp.data_ptr(),
-        twin.data_ptr(), n, steps, int(disk), int(adaptive))
-    out_t, dout_t = twin[:15], twin[15:].view(2, 15, n)
+        twin.data_ptr(), n, steps, int(disk), int(adaptive), int(track))
+    out_t, dout_t = twin[:p], twin[p:].view(2, p, n)
     codes = set(out_p[0].tolist())
+    if track:
+        assert bool((out_p[15] < 1e9).any())
     if not adaptive:
         assert 3.0 in codes and (1.0 in codes) == disk
         np.testing.assert_array_equal(out_t[0].numpy(), out_p[0].numpy())
         np.testing.assert_array_equal(out_t[2].numpy(), out_p[2].numpy())
         np.testing.assert_allclose(out_t.numpy(), out_p.numpy(), rtol=1e-4,
                                    atol=1e-4)
+        lengths = [1, 3, 4, 5, 9, 14] + ([15, 16, 17, 18] if track else [])
+        units = [6, 7, 8, 10, 11, 12, 13] + ([19, 20, 21] if track else [])
         for k in range(2):
-            for planes in ([1, 3, 4, 5, 9, 14], [6, 7, 8, 10, 11, 12, 13]):
+            for planes in (lengths, units):
                 t, p = dout_t[k][planes].numpy(), dout_p[k][planes].numpy()
                 bound = 1e-4 * (np.abs(p) + np.abs(p).max())
                 assert np.all(np.abs(t - p) <= bound), (k, planes)
@@ -495,34 +550,44 @@ def test_dual_host_twin_matches_plain(host_twin, integrator, disk):
     colors = [trace_kernel.postprocess(out, n, (n,), scene, None, inp[5]).color
               for out in (out_p, out_t)]
     dc = (colors[0] - colors[1]).abs().amax(-1).numpy()
+    if track:
+        agree &= out_p[2].numpy() == out_t[2].numpy()
     dc = dc[agree & (res_p != trace_kernel.trace.ACTIVE)]
     assert dc.mean() < 2e-3 and np.percentile(dc, 99) < 3e-2
 
 
+def count_flops_per_step(host_twin, n_tan, adaptive, track):
+    """(least, executed) operations per step of a kernel variant with the
+    disk on, over the 8x8 parity camera's rays at 250 steps."""
+    _, scal, dscal, inp, dinp, _ = _fwdgrad_case(
+        "rkf45" if adaptive else "rk4", True, size=8, time_step=0.1,
+        max_steps=250, max_dist=80.0)
+    n = inp.shape[1]
+    p = trace_kernel.n_out(track)
+    out = torch.empty(n if n_tan == 0 else (1 + n_tan) * p * n)
+    flops = host_twin.bh_count_flops(
+        scal.data_ptr(), dscal.data_ptr(), inp.data_ptr(), dinp.data_ptr(),
+        out.data_ptr(), n, 250, 1, int(adaptive), n_tan, int(track))
+    least = flops - host_twin.bh_count_excess()
+    steps = float((out if n_tan == 0 else out.view(-1, n)[2]).double().sum())
+    return least / steps, flops / steps
+
+
 def test_flops_per_step_match_chip_smoke(host_twin):
     """The floating-point operations per step of each kernel variant on
-    the bench's path, counted by running csrc's code on a counting float
-    (an FMA counts 2), match the constants chip_smoke.py computes its
-    bounds and issue shares from (within 0.5%: the count per step varies
-    with the branches a ray takes): the least the arithmetic needs, and
-    what the source executes."""
+    the bench's path and the soft path (track), counted by running
+    csrc's code on a counting float (an FMA counts 2), match the
+    constants chip_smoke.py computes its bounds and issue shares from
+    (within 0.5%: the count per step varies with the branches a ray
+    takes): the least the arithmetic needs, and what the source
+    executes."""
     import chip_smoke
 
-    for integrator in ("rk4", "rkf45"):
-        adaptive = integrator == "rkf45"
-        _, scal, dscal, inp, dinp, _ = _fwdgrad_case(
-            integrator, True, size=8, time_step=0.1, max_steps=250,
-            max_dist=80.0)
-        n = inp.shape[1]
-        for n_tan in (0, 1, 2):
-            out = torch.empty(n if n_tan == 0 else (1 + n_tan) * 15 * n)
-            flops = host_twin.bh_count_flops(
-                scal.data_ptr(), dscal.data_ptr(), inp.data_ptr(),
-                dinp.data_ptr(), out.data_ptr(), n, 250, 1, int(adaptive),
-                n_tan)
-            least = flops - host_twin.bh_count_excess()
-            steps = float((out if n_tan == 0 else out.view(-1, n)[2])
-                          .double().sum())
-            refs = chip_smoke.FLOPS_PER_STEP[(n_tan, adaptive)]
-            for got, ref in zip((least / steps, flops / steps), refs):
-                assert abs(got / ref - 1.0) < 5e-3, (n_tan, adaptive, got)
+    for track in (False, True):
+        for adaptive in (False, True):
+            for n_tan in (0, 1, 2):
+                got = count_flops_per_step(host_twin, n_tan, adaptive, track)
+                refs = chip_smoke.FLOPS_PER_STEP[(n_tan, adaptive, track)]
+                for g, ref in zip(got, refs):
+                    assert abs(g / ref - 1.0) < 5e-3, (n_tan, adaptive,
+                                                       track, g)
