@@ -6,8 +6,14 @@
 // kernel's arithmetic).  Every operator computes the primal exactly as the
 // float code does, and each tangent by jax.jvp's rule for that primitive,
 // so the kernel's tangent recurrence is the one jax.jvp derived inside the
-// JAX package's Pallas kernel:
-//   x * y   -> dx y + x dy          x / y -> dx / y + (-dy x) (1 / (y y))
+// JAX package's Pallas kernel, except that a quotient takes its tangents
+// from one reciprocal of the divisor (an IEEE division costs about eight
+// instructions on the card, a product one; the tangents move by ulps
+// against jax.jvp's literal rule, and the primal keeps its division):
+//   x / y   -> (dx - q dy) r        with q = x / y, r = 1 / y
+//   c / y   -> dy (-(q r))          (c a float)
+//   x / c   -> dx (1 / c)           (1 / c folds for a literal c)
+//   x * y   -> dx y + x dy
 //   sqrt x  -> dx (0.5 / sqrt x)    rsqrt x -> dx (-0.5 (rsqrt x / x))
 //   log x   -> dx / x               exp x -> dx exp x
 //   abs x   -> x >= 0 ? dx : -dx    (tangent +dx at 0)
@@ -96,21 +102,22 @@ BH_DUAL BH_HD BH_D operator*(float c, const BH_D& b) {
 BH_DUAL BH_HD BH_D operator/(const BH_D& a, const BH_D& b) {
   BH_D r;
   r.v = a.v / b.v;
-  const F inv2 = 1.0f / (b.v * b.v);
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] / b.v + (-b.d[i] * a.v) * inv2;
+  const F rb = 1.0f / b.v;
+  for (int i = 0; i < N; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) * rb;
   return r;
 }
 BH_DUAL BH_HD BH_D operator/(const BH_D& a, float c) {
   BH_D r;
   r.v = a.v / c;
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] / c;
+  const float rc = 1.0f / c;
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * rc;
   return r;
 }
 BH_DUAL BH_HD BH_D operator/(float c, const BH_D& b) {
   BH_D r;
   r.v = c / b.v;
-  const F inv2 = 1.0f / (b.v * b.v);
-  for (int i = 0; i < N; ++i) r.d[i] = (-b.d[i] * c) * inv2;
+  const F k = r.v * (1.0f / b.v);
+  for (int i = 0; i < N; ++i) r.d[i] = -b.d[i] * k;
   return r;
 }
 
@@ -219,7 +226,9 @@ BH_DUAL BH_HD void slave_trig(BH_D& st, BH_D& ct, BH_D& sp, BH_D& cp,
 // NaN-propagating max of |d| over the state slots, the 7 tracking slots
 // included under TRACK (L rides in the scalars and is outside it), factor
 // = LIMIT / max(mag, LIMIT), or 0 where mag is not finite, and each slot
-// becomes (finite ? d : 0) * factor.
+// becomes (finite ? d : 0) * factor.  Where mag is finite and at most
+// LIMIT (almost every step), every slot is finite and factor is exactly
+// 1, so the guard is the identity and does no work: bitwise the same.
 constexpr float TANGENT_LIMIT = 1.0e6f;
 
 template <int N, typename F, bool TRACK>
@@ -232,6 +241,7 @@ BH_UNROLL
     F mag = abs_(slot[0]->d[i]);
 BH_UNROLL
     for (int k = 1; k < NS; ++k) mag = jmax(mag, abs_(slot[k]->d[i]));
+    if (mag <= TANGENT_LIMIT) continue;  // false for NaN
     F factor = TANGENT_LIMIT / jmax(mag, TANGENT_LIMIT);
     if (!is_finite(mag)) factor = F(0.0f);
 BH_UNROLL

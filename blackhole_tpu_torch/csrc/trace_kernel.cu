@@ -10,13 +10,17 @@
 // written once (15 planes, 22 under track).
 //
 // What bounds it on the card: FP32 issue and register pressure, not bytes.
-// A ray reads 16 floats and writes 15 against hundreds of steps of ~650
-// flops (RK4) to ~1000 (RKF45) each, so device memory is idle.  The design:
-// one thread per ray with its 21-slot state in registers and the 12 scene
-// scalars loaded once per thread; inputs and outputs are (planes, n)
-// structure-of-arrays so each plane's loads and stores coalesce; each
-// thread loops to its own retirement (per-ray early exit, where the TPU
-// tile ran to its slowest ray), so a warp's cost is its slowest ray; no
+// A ray reads 16 floats and writes 15 against hundreds of steps of ~750
+// flops (RK4) to ~1500 (RKF45) each, 34 to 55 of them IEEE divisions, so
+// device memory is idle.  The design: one thread per ray with its 21-slot
+// state in registers; the 12 scene scalars in the constant bank, where
+// the step reads them as operands instead of holding them in registers
+// through the loop; inputs and outputs are (planes, n) structure-of-arrays
+// so each plane's loads and stores coalesce; each thread loops to its own
+// retirement (per-ray early exit, where the TPU tile ran to its slowest
+// ray), so a warp's cost is its slowest ray; blocks of 32 threads, so a
+// block's registers free as soon as its one warp retires (the fastest of
+// 32, 64, 96 and 128 at the bench shapes, PERF.md); no
 // padding, the grid is ceil(n / block) with a bounds guard.  Per-ray
 // arithmetic does not depend on the thread's position, so any ray order
 // gives bitwise the same per-ray results.
@@ -26,27 +30,43 @@
 #include <cuda_runtime.h>
 
 #include "geodesic_step.cuh"
+#include "launch_order.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;
+constexpr int kBlock = 32;
+
+// The launch's 12 scene scalars, the same for every thread: read from the
+// constant bank where the step uses them rather than held in registers
+// through the loop.  bh_trace_planes copies them here from the device,
+// on the launch's stream, right before the launch; `order` makes the
+// launches take turns on the bank, whatever their streams.
+__constant__ float c_scal[bh::N_SCAL];
+bh::LaunchOrder order;
 
 template <bool DISK_ON, bool ADAPTIVE, bool TRACK>
 __global__ void __launch_bounds__(kBlock)
-    trace_kernel(const float* __restrict__ scal, const float* __restrict__ inp,
-                 float* __restrict__ out, long long n, int max_steps) {
+    trace_kernel(const float* __restrict__ inp, float* __restrict__ out,
+                 long long n, int max_steps) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const bh::Scal s = bh::load_scal(scal);
+  const bh::Scal s = bh::load_scal(c_scal);
   bh::trace_ray<DISK_ON, ADAPTIVE, TRACK>(inp, out, n, i, s, max_steps);
 }
 
-template <bool DISK_ON, bool ADAPTIVE, bool TRACK = false>
-void launch(const float* scal, const float* inp, float* out, long long n,
-            int max_steps, cudaStream_t stream) {
-  const long long grid = (n + kBlock - 1) / kBlock;
-  trace_kernel<DISK_ON, ADAPTIVE, TRACK>
-      <<<(unsigned)grid, kBlock, 0, stream>>>(scal, inp, out, n, max_steps);
+// The variant's kernel.
+using Kernel = void (*)(const float*, float*, long long, int);
+Kernel kernel_of(int disk_on, int adaptive, int track) {
+  if (track) {
+    if (adaptive) return trace_kernel<true, true, true>;
+    return trace_kernel<true, false, true>;
+  }
+  if (disk_on) {
+    if (adaptive) return trace_kernel<true, true, false>;
+    return trace_kernel<true, false, false>;
+  }
+  if (adaptive) return trace_kernel<false, true, false>;
+  return trace_kernel<false, false, false>;
 }
 
 }  // namespace
@@ -54,31 +74,43 @@ void launch(const float* scal, const float* inp, float* out, long long n,
 extern "C" {
 
 // scal (12,), inp (16, n) and out (15, n; 22 with track) are float32
-// device pointers; track needs disk_on.  Returns cudaGetLastError() after
-// the launch (0 on success).
+// device pointers; track needs disk_on.  scal is copied to the constant
+// bank on `stream` before the launch, after the previous launch of this
+// library on the device.  Returns the first CUDA error of the ordering,
+// the copy and the launch (0 on success).
 int bh_trace_planes(const float* scal, const float* inp, float* out,
                     long long n, int max_steps, int disk_on, int adaptive,
                     int track, void* stream) {
   if (track && !disk_on) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (track) {
-    if (adaptive)
-      launch<true, true, true>(scal, inp, out, n, max_steps, st);
-    else
-      launch<true, false, true>(scal, inp, out, n, max_steps, st);
-  } else if (disk_on) {
-    if (adaptive)
-      launch<true, true>(scal, inp, out, n, max_steps, st);
-    else
-      launch<true, false>(scal, inp, out, n, max_steps, st);
-  } else {
-    if (adaptive)
-      launch<false, true>(scal, inp, out, n, max_steps, st);
-    else
-      launch<false, false>(scal, inp, out, n, max_steps, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const unsigned grid = (unsigned)((n + kBlock - 1) / kBlock);
+  return static_cast<int>(order.run(st, [&] {
+    const cudaError_t rc = cudaMemcpyToSymbolAsync(
+        c_scal, scal, sizeof(c_scal), 0, cudaMemcpyDeviceToDevice, st);
+    if (rc != cudaSuccess) return rc;
+    kernel_of(disk_on, adaptive, track)<<<grid, kBlock, 0, st>>>(
+        inp, out, n, max_steps);
+    return cudaGetLastError();
+  }));
+}
+
+// The variant's block size, resident blocks per SM, registers per thread
+// and local memory per thread in bytes, into out[4].  Returns the CUDA
+// error code (0 on success).
+int bh_trace_attributes(int disk_on, int adaptive, int track, int* out) {
+  if (track && !disk_on) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = (const void*)kernel_of(disk_on, adaptive, track);
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, fn);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  int blocks = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBlock, 0);
+  out[0] = kBlock;
+  out[1] = blocks;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(rc);
 }
 
 const char* bh_error_string(int code) {

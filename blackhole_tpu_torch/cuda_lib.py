@@ -11,7 +11,9 @@ only for a CUDA tensor, so the CPU path never needs nvcc.
   trace:   csrc/trace_kernel.cu  (K1, bh_trace_planes)
   fwdgrad: csrc/trace_fwdgrad.cu (K2, bh_trace_planes_fwdgrad)
 Each library holds every static variant of its kernel, the tracking ones
-(track: the soft boundary's crossing-opacity planes) included.
+(track: the soft boundary's crossing-opacity planes) included, and
+reports each variant's block size, resident blocks per SM, registers and
+local memory (bh_trace_attributes, bh_fwdgrad_attributes).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARIES = {"trace": CSRC / "trace_kernel.cu",
              "fwdgrad": CSRC / "trace_fwdgrad.cu"}
 SOURCES = (*LIBRARIES.values(), CSRC / "geodesic_step.cuh",
-           CSRC / "dual.cuh")
+           CSRC / "dual.cuh", CSRC / "launch_order.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "blackhole_tpu_torch"
 # No --use_fast_math: sqrtf, division, logf and expf stay IEEE-accurate.
@@ -107,6 +109,8 @@ def load(name: str) -> ctypes.CDLL:
     if name == "trace":
         lib.bh_trace_planes.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _I, _P]
         lib.bh_trace_planes.restype = _I
+        lib.bh_trace_attributes.argtypes = [_I, _I, _I, _P]
+        lib.bh_trace_attributes.restype = _I
         lib.bh_error_string.argtypes = [_I]
         lib.bh_error_string.restype = ctypes.c_char_p
     else:
@@ -114,9 +118,33 @@ def load(name: str) -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P,
         ]
         lib.bh_trace_planes_fwdgrad.restype = _I
+        lib.bh_fwdgrad_attributes.argtypes = [_I, _I, _I, _I, _P]
+        lib.bh_fwdgrad_attributes.restype = _I
         lib.bh_fwdgrad_error_string.argtypes = [_I]
         lib.bh_fwdgrad_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def attributes(n_tan: int, disk_on: bool, adaptive: bool,
+               track: bool) -> dict:
+    """A variant's launch shape on the current device: its block size,
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    and warps per SM, registers per thread and local memory per thread in
+    bytes (cudaFuncGetAttributes).  n_tan 0 is K1, else K2."""
+    vals = (ctypes.c_int * 4)()
+    if n_tan == 0:
+        rc = load("trace").bh_trace_attributes(
+            int(disk_on), int(adaptive), int(track), ctypes.addressof(vals))
+    else:
+        rc = load("fwdgrad").bh_fwdgrad_attributes(
+            n_tan, int(disk_on), int(adaptive), int(track),
+            ctypes.addressof(vals))
+    if rc != 0:
+        raise RuntimeError(f"kernel attributes failed ({rc})")
+    block, blocks, regs, local = vals
+    return {"block": block, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * block // 32, "registers": regs,
+            "local_bytes": local}
 
 
 def trace_planes(scal, inp, out, n: int, max_steps: int, disk_on: bool,

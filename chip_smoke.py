@@ -27,13 +27,24 @@ Phases (each raises on failure; nothing is caught):
      kernel runs K2 with one tangent) at the JAX package's check_jvp case
      (1024 rays, 200 steps, a = 0.9, disk on), d/dmass and d/dspin
      against the plain version within rtol 1e-3, atol 1e-7;
+  5b. K1 and K2 (d/d(mass, spin)) after 1 and 2 steps from the same
+     64x64 parity states, RK4 and RKF45, disk off, on and tracking, and
+     after 2 steps from the controller states (RKF45, every first step
+     rejected), against their plain versions (check_one_step: codes and
+     step counts equal; every plane within ONE_STEP_TOL of the CPU twin's
+     contract, the last chord direction's tangent within
+     ONE_STEP_CHORD_TOL; after a step that used the RKF45 controller's
+     output, the medians, and per ray the rays whose step a clamp of the
+     controller set);
   6. depth-sorted traces equal raster traces bitwise at 256x256: the
      forward trace and the fwdgrad trace (hit and tangents);
   7. the forward half of the main path: image.render_image of the bench
      scene (Kerr a=0.9, disk 6-20, 1024x1024, RK4, 1000 steps) and its
      RKF45 tol 1e-6 variant at 512x512, K1's launches counted; then
      rays/s of trace_rays_fast (median of 3) and of the plain version at
-     1024x1024, with K1 held to the plain version at that size;
+     1024x1024, with K1 held to the plain version at that size; K1's
+     times and bounds for render_image's prepasses (128x128 RK4, 64x64
+     RKF45) and its 512x512 RKF45 render;
   8. the gradient half of the main path (bench.py's fwd+bwd):
      grad.fast_grad.scene_value_and_grad over {mass, spin} of the bench
      loss sum(colour) / 3n with the depth order, at 1024x1024, RK4 1000
@@ -72,10 +83,18 @@ Phases (each raises on failure; nothing is caught):
      pass, whose primal must equal K1-track's plain version bitwise);
   10. gradient fidelity: torch.func.jvp of the clipped MSE through
      trace_rays_fast at 256x256, 800 steps, softness 0.3, against central
-     finite differences at mass 1.03 and 0.98 (rtol FIDELITY_RTOL);
+     finite differences at mass 1.03 and 0.98 (rtol FIDELITY_RTOL); the
+     time and bound of its planes pass (K2-track with one tangent, K3's
+     tracking variant);
   11. grad.inverse.fit_forward for 3 steps at 256x256 (RKF45 tol 1e-6,
      softness 0.3) from mass 1.03 against a target rendered at 1.0:
-     finite losses and log_mass moving toward 0; ms per step.
+     finite losses and log_mass moving toward 0; ms per step;
+  12. the kernels' anatomy (print_anatomy): every variant's block,
+     resident blocks and warps per SM, registers and local memory (the
+     libraries' attributes exports), divisions per step and the step
+     loop's SASS mix (cuobjdump -sass of the built libraries); the lane
+     and block shares of phases 7-9's 1024x1024 launches in raster and
+     depth-sorted order.
 Every phase prints its start time.  The last three lines are the card,
 one JSON object about the kernels and one JSON object with "ok" and the
 device.  Exits non-zero without a result when no GPU is present or the
@@ -117,19 +136,34 @@ KERNELS = {
 # tangents:
 # (the least the arithmetic needs, what the CUDA source executes).  The
 # source spends more on 1 / sqrt (two, where one rsqrt does), on a Dual
-# quotient (1 / (b b) and four operations per tangent, where the quotient
-# rule spends three) and on a Dual max/min (a weighted sum of the tangents,
-# where a select does).  Counted by running csrc's source on a counting
-# float over the parity camera's rays (tests/test_torch_step.py,
-# test_flops_per_step_match_chip_smoke, holds these numbers).  The bound
-# takes the least; the executed count gives the FP32 issue share.
+# quotient (a reciprocal of the divisor beside the primal's division) and
+# on a Dual max/min (a weighted sum of the tangents, where a select does);
+# it spends less where the tangent guard is the identity and skips its
+# rescale, which the least counts all the same.  Counted by running csrc's
+# source on a counting float over the parity camera's rays
+# (tests/test_torch_step.py, test_flops_per_step_match_chip_smoke, holds
+# these numbers).  The bound takes the least; the executed count gives the
+# FP32 issue share.
 FLOPS_PER_STEP = {
     (0, False, False): (754.0, 756.0), (0, True, False): (1459.5, 1461.5),
-    (1, False, False): (2456.0, 2560.0), (1, True, False): (4633.4, 4852.4),
-    (2, False, False): (4141.0, 4294.0), (2, True, False): (7786.4, 8129.2),
+    (1, False, False): (2456.0, 2484.0), (1, True, False): (4633.4, 4736.4),
+    (2, False, False): (4141.0, 4164.0), (2, True, False): (7786.4, 7937.2),
     (0, False, True): (761.0, 763.0), (0, True, True): (1466.5, 1468.5),
-    (1, False, True): (2493.0, 2597.0), (1, True, True): (4670.4, 4889.4),
-    (2, False, True): (4207.0, 4360.0), (2, True, True): (7852.4, 8195.2),
+    (1, False, True): (2493.0, 2514.0), (1, True, True): (4670.4, 4766.4),
+    (2, False, True): (4207.0, 4216.0), (2, True, True): (7852.4, 7989.2),
+}
+# IEEE float32 divisions (1 / sqrt included) and square roots (rsqrt
+# included) per step of the same variants, by the same count
+# (test_divisions_per_step_match_chip_smoke).  Without fast math a
+# division is a reciprocal estimate, its refinement, a range check and a
+# branch to a slow path on the card: about eight instructions.
+DIVS_PER_STEP = {
+    (0, False, False): (34.0, 6.0), (0, True, False): (55.0, 6.0),
+    (1, False, False): (71.0, 6.0), (1, True, False): (115.0, 6.0),
+    (2, False, False): (71.0, 6.0), (2, True, False): (116.0, 6.0),
+    (0, False, True): (34.0, 7.0), (0, True, True): (55.0, 7.0),
+    (1, False, True): (72.0, 7.0), (1, True, True): (116.0, 7.0),
+    (2, False, True): (72.0, 7.0), (2, True, True): (117.0, 7.0),
 }
 # NVIDIA H100 SXM at its 700 W limit: FP32 outside the tensor cores and
 # device memory bandwidth (data sheet).
@@ -163,6 +197,36 @@ RKF45_GRAD_RTOL = 1e-2
 # time is their per-step launches, nearly independent of the rays.
 PLAIN_SAMPLE = 16
 RKF45_SAMPLE = 64
+# The one-step check (phase 5b): after 1 and 2 steps from the same
+# states, a kernel's planes against its plain version's, each difference
+# over (|plain| + the largest |plain| of its kind): the CPU twin's
+# contract (tests/test_torch_step.py, test_dual_host_twin_matches_plain),
+# a few ulp per operation.  The last chord direction's tangent takes the
+# one-step tolerance of that slot in tests/test_torch_fwdgrad_step.py:
+# it is the chord's tangent over its length, a cancellation of nearly
+# parallel tangents this early (measured 1.4e-3 on the g++ twin without
+# FMA, 3.2e-3 with it).  Once a step has used the RKF45 controller's
+# output, FMA contraction moves the error estimate |y5 - y4|, a
+# cancellation, and the controller carries that into h and its tangent:
+# at the parity states every ray's first estimate is 1-2 ulp of its
+# scale, so only the median is held there (g++ twin with FMA: median
+# 8e-6, p99 0.15; with the controller's log tangent dropped, median
+# 2-3e-3), and no first step there is rejected or clamped.  At the
+# controller states (controller_scene) every first step is rejected with
+# an estimate far above the tolerance: at the "clamped" states the rays
+# whose second step a clamp set are held per ray (g++ twin with FMA:
+# largest gap 9.8e-7 on 1,622 of 4,096 rays; with the scale clamp
+# passing its input's tangent through, 0.23); at the "rejected" states,
+# at tolerance 1e-4 so that the estimate is further from cancellation,
+# the scale is clamped on 715 of 4,096 rays and the median holds the
+# rejected branch's rule on the rest (g++ twin with FMA: median 3.7e-7;
+# with the accepted branch's tangent on rejected steps, 1.3e-3).  K1 is held at the parity states only: it
+# has no tangent.  By name: (camera distance and first step in M,
+# tolerance).
+ONE_STEP_TOL = 1e-4
+ONE_STEP_CHORD_TOL = 1e-2
+CONTROLLER_STATES = {"clamped": (5.0, 3.0, 1e-6),
+                     "rejected": (8.0, 6.0, 1e-4)}
 # The soft boundary's AD/FD contract at 256x256, 800 steps (the JAX
 # package's pin, tests/test_tpu_compiled.py).
 FIDELITY_RTOL = 0.15
@@ -687,6 +751,192 @@ def check_track_vs_plain(device, size=64, integrators=("rk4", "rkf45"),
     return out
 
 
+def one_step_gaps(kern, plain, track):
+    """Per ray, the largest |kern - plain| / (|plain| + the largest
+    |plain| of its kind) over the continuous planes, in the CPU twin's
+    two kinds (tests/test_torch_step.py, test_dual_host_twin_matches_plain):
+    lengths and positions (path length, hit position, r, min_r; with track
+    min |z'| and its position) and unit directions and trig.  Returns
+    (over every plane but the last chord direction, over that direction:
+    lx, ly, lz and with track the direction at the tracked point); equal
+    values, NaN on both sides included, count 0."""
+    import torch
+
+    lengths = [1, 3, 4, 5, 9, 14] + ([15, 16, 17, 18] if track else [])
+    trig = [10, 11, 12, 13]
+    chord = [6, 7, 8] + ([19, 20, 21] if track else [])
+
+    def gaps(planes, kind):
+        k, p = kern[planes].double(), plain[planes].double()
+        scale = p.abs() + plain[kind].double().abs().nan_to_num(0.0).max()
+        diff = (k - p).abs()
+        same = (diff == 0) | (k.isnan() & p.isnan())
+        return torch.where(same, 0.0, diff / scale).amax(0)
+
+    return (torch.maximum(gaps(lengths, lengths), gaps(trig, trig + chord)),
+            gaps(chord, trig + chord))
+
+
+def controller_scene(device, size=64, track=False, states="clamped"):
+    """The one-step check's controller states: the parity case's disk and
+    scene (spin 0.9, RKF45) seen at fov 60 deg from closer, with a longer
+    first step (CONTROLLER_STATES), so that every ray's first step is
+    rejected with an error estimate far above the tolerance and far from
+    cancellation.  "clamped": the controller clamps the step's scale at
+    MIN_SCALE on many rays; "rejected": on fewer, so the rejected
+    branch's rule sets most rays' second step."""
+    from blackhole_tpu_torch.geom.types import (
+        BlackHole, Camera, Disk, Scene, SimConfig,
+    )
+    from blackhole_tpu_torch.render import camera as cam
+
+    distance, first_step, tolerance = CONTROLLER_STATES[states]
+    scene = Scene(
+        BlackHole.create(1.0, 0.9, device=device),
+        Disk.create(6.0, 20.0, device=device),
+        SimConfig.create(time_step=first_step, max_ray_distance=80.0,
+                         max_steps=250, integrator="rkf45",
+                         tolerance=tolerance,
+                         shadow_softness=0.3 if track else 0.0,
+                         device=device),
+        disk_enabled=True,
+    )
+    height = distance * 4.0 / 15.0  # the parity camera's elevation
+    camera = Camera.create(position=(0.0, -distance, height),
+                           direction=(0.0, distance, -height),
+                           up=(0.0, 0.0, 1.0), fov_deg=60.0, device=device)
+    o, d = cam.generate_rays(camera, size, size)
+    return scene, o.reshape(-1, 3), d.reshape(-1, 3)
+
+
+def clamped_rays(o, d, scene, args, plain, first):
+    """The rays whose first RKF45 step was rejected and whose planes and
+    tangents after the second step are bitwise the same with the
+    tolerance halved and doubled: their second step's size was set by a
+    clamp of the controller, not by its error estimate, so rounding
+    cannot move it.  plain: the plain pass's (planes, tangents) after
+    args' steps; first: its planes after one step."""
+    import torch
+
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    def same(a, b):
+        return ((a == b) | (a.isnan() & b.isnan())).flatten(0, -2).all(0)
+
+    out = (first[0] == -1.0) & (first[1] == 0.0)
+    for f in (2.0, 0.5):
+        s = dataclasses.replace(scene, config=dataclasses.replace(
+            scene.config, tolerance=scene.config.tolerance * f))
+        planes_in, _ = tk.prepare_fwdgrad(o, d, s, mass_spin_tangents(s))
+        other = tk.trace_planes_fwdgrad_plain(*planes_in, *args)
+        out &= same(other[0], plain[0]) & same(other[1], plain[1])
+    return out
+
+
+def check_one_step(device, size=64):
+    """Phase 5b: K1 and K2 (2 tangents, d/d(mass, spin)) after 1 and 2
+    steps from the same 64x64 parity states (spin 0.9), RK4 and RKF45,
+    disk off, on, and on with tracking (softness 0.3), and K2 after 2
+    steps from the two sets of controller states (controller_scene:
+    RKF45, disk on, without and with tracking, for the controller's
+    tangent rule), against their plain versions on the same inputs.
+    Per ray the gap of a plane is |kernel - plain| / (|plain| + the
+    largest |plain| of its kind) (one_step_gaps: the CPU twin's
+    contract).  Gates: result codes and step counts equal; the median
+    gap, primal and tangents, within ONE_STEP_TOL (a fault in a tangent
+    rule moves most rays: at the "rejected" states a fault in the
+    rejected branch's rule), the last chord direction's tangent within
+    ONE_STEP_CHORD_TOL; the largest gaps within the same tolerances over
+    every ray where no step has yet used the RKF45 controller's output
+    (RK4, and the first RKF45 step), else over the rays whose second step
+    a clamp of the controller set (clamped_rays).  The step size h is no
+    output plane: the second step reads it, so its primal and its
+    tangent (the RK4 schedule's and the controller's rule) show in the
+    second step's chord, path length and position.  Returns one stats
+    dict per case and step count."""
+    import torch
+
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    def q(x, p):
+        return float(torch.quantile(x, p))
+
+    cases = []
+    for integ in ("rk4", "rkf45"):
+        for disk, track in ((False, False), (True, False), (True, True)):
+            scene, _, o, d = parity_scene(0.9, disk, integ, device, size,
+                                          softness=0.3 if track else 0.0)
+            cases.append(("parity", scene, o, d, (1, 2)))
+    for states in CONTROLLER_STATES:
+        for track in (False, True):
+            cases.append((states, *controller_scene(device, size, track,
+                                                    states), (2,)))
+    out = []
+    for states, scene, o, d, step_counts in cases:
+        tangents = mass_spin_tangents(scene)
+        planes_in, _ = tk.prepare_fwdgrad(o, d, scene, tangents)
+        scal, _, inp, _ = planes_in
+        disk_on, _, adaptive, track = tk.planes_args(scene)
+        for steps in step_counts:
+            args = (disk_on, steps, adaptive, track)
+            k2, dk2 = tk.trace_planes_fwdgrad(*planes_in, *args)
+            p2, dp2 = tk.trace_planes_fwdgrad_plain(*planes_in, *args)
+            pairs, codes = [(k2, p2)], []
+            if states == "parity":
+                k1 = tk.trace_planes(scal, inp, *args)
+                pairs.append((k1, tk.trace_planes_plain(scal, inp, *args)))
+                codes = [(k2, k1)]
+            prim = torch.stack([torch.maximum(*one_step_gaps(k, p, track))
+                                for k, p in pairs]).amax(0)
+            tan, chord = (torch.maximum(a, b) for a, b in zip(
+                one_step_gaps(dk2[0], dp2[0], track),
+                one_step_gaps(dk2[1], dp2[1], track)))
+            if adaptive and steps > 1:
+                first = tk.trace_planes_plain(scal, inp, disk_on, 1, adaptive,
+                                              track)
+                held = clamped_rays(o, d, scene, args, (p2, dp2), first)
+            else:
+                held = torch.ones_like(prim, dtype=torch.bool)
+
+            def held_max(x):
+                return float(x[held].max()) if bool(held.any()) else 0.0
+
+            stats = {
+                "states": states, "integrator": "rkf45" if adaptive else "rk4",
+                "disk": disk_on, "track": track, "steps": steps,
+                "codes_differ": sum(int((k[0] != p[0]).sum())
+                                    for k, p in pairs + codes),
+                "steps_differ": sum(int((k[2] != p[2]).sum())
+                                    for k, p in pairs),
+                "advanced": int((p2[1] > 0).sum()),
+                "primal_max": float(prim.max()),
+                "primal_p50": q(prim, 0.5), "primal_p99": q(prim, 0.99),
+                "tangent_max": float(tan.max()),
+                "tangent_p50": q(tan, 0.5), "tangent_p99": q(tan, 0.99),
+                "chord_max": float(chord.max()),
+                "chord_p50": q(chord, 0.5), "chord_p99": q(chord, 0.99),
+                "rays_over_tol": int((torch.maximum(prim, tan)
+                                      > ONE_STEP_TOL).sum()),
+                "held_rays": int(held.sum()),
+                "held_max": max(held_max(prim), held_max(tan)),
+                "held_chord_max": held_max(chord),
+            }
+            stats["ok"] = (
+                stats["codes_differ"] == stats["steps_differ"] == 0
+                and stats["advanced"] > 0
+                and max(stats["primal_p50"], stats["tangent_p50"])
+                <= ONE_STEP_TOL
+                and stats["chord_p50"] <= ONE_STEP_CHORD_TOL
+                and stats["held_max"] <= ONE_STEP_TOL
+                and stats["held_chord_max"] <= ONE_STEP_CHORD_TOL)
+            out.append(stats)
+    held = sum(st["held_rays"] for st in out if st["states"] == "clamped")
+    check(held > 0, "one-step check: no clamped state's step was clamped")
+    bad = [st for st in out if not st["ok"]]
+    check(not bad, f"one-step check: kernel and plain disagree: {bad}")
+    return out
+
+
 def _hits_equal(a, b):
     return sum(int((getattr(a, f.name) != getattr(b, f.name)).sum())
                for f in dataclasses.fields(a))
@@ -756,6 +1006,32 @@ def print_bound(what, ms, bound):
           f"{100 * issue_ms / ms:.1f}%")
 
 
+def time_k1_launches(camera, scene, scene45):
+    """K1's other launches on the forward half (phase 7): render_image's
+    depth-order prepasses (1024 / 8 = 128x128 RK4 and 512 / 8 = 64x64
+    RKF45, raster order) and its 512x512 RKF45 render (depth order):
+    CUDA-event ms, median of 3, and bounds."""
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import image, trace_kernel as tk
+
+    for what, sc, size, depth in (("prepass 128^2 rk4", scene, 128, False),
+                                  ("prepass 64^2 rkf45", scene45, 64, False),
+                                  ("render 512^2 rkf45", scene45, 512, True)):
+        o, d = cam.generate_rays(camera, size, size)
+        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        if depth:
+            order = image.predicted_depth_order(sc, camera, size, size)
+            o, d = o[order], d[order]
+        scal, inp = tk.prepare(o, d, sc)
+        args = tk.planes_args(sc)
+        runs = [_cuda_ms(lambda: tk.trace_planes(scal, inp, *args))
+                for _ in range(3)]
+        ms = statistics.median(t for _, t in runs)
+        print(f"K1 {what}: kernel {ms:.3f} ms")
+        print_bound(f"K1 {what}", ms,
+                    bound_ms(0, args[2], runs[0][0][2], o.shape[0]))
+
+
 def sample_hits(o, d, scene, tangents, planes, pick):
     """K2's planes (out, douts) for the rays pick of (o, d), finished
     into (hit, [hit tangent]) with scene's host stages."""
@@ -780,8 +1056,9 @@ def time_fwdgrad(o, d, scene, tangents):
 def check_fwdgrad_main_shapes(o, d, scene, scene45, k1_planes, k1_ms):
     """Phase 8's K2 checks at the main path's shapes, given K1's planes
     and time for the same rays of `scene`; prints times and bounds and
-    returns K2's row of the kernels line and the plain tracking pass on
-    every PLAIN_SAMPLE-th ray (with its ms), which phase 9 reuses."""
+    returns K2's row of the kernels line, the plain tracking pass on
+    every PLAIN_SAMPLE-th ray (with its ms), which phase 9 reuses, and
+    K2's step-count planes {name: steps} (RK4 and RKF45, raster)."""
     from blackhole_tpu_torch.render import trace_kernel as tk
 
     n = o.shape[0]
@@ -849,7 +1126,8 @@ def check_fwdgrad_main_shapes(o, d, scene, scene45, k1_planes, k1_ms):
         max(b["color_max"], b["tangent_max"]) for b in (big2, big3, big45)),
         "ms": ms_k2, "plain_ms": plain_s[1], "plain_every": PLAIN_SAMPLE,
         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None}
-    return row, plain_s
+    return row, plain_s, {"K2 n=2 rk4": out_k[2],
+                          "K2 n=2 rkf45": k45_planes[0][2]}
 
 
 def _timed(fn, repeats=3):
@@ -913,7 +1191,8 @@ def soft_path(dev, camera, o, d, plain_s):
     square image's rays (o, d) of camera, 1024x1024 in main; the tracking
     kernels are held to plain_s, phase 8's plain tracking pass (and its
     ms) on every PLAIN_SAMPLE-th ray.  Returns the kernels line's two
-    tracking rows."""
+    tracking rows and the tracking kernels' RK4 step-count planes {name:
+    steps} (raster)."""
     import torch
 
     from blackhole_tpu_torch.render import image, trace_kernel as tk
@@ -1021,7 +1300,8 @@ def soft_path(dev, camera, o, d, plain_s):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "plain_every": PLAIN_SAMPLE, "bound_ms": bound[0],
                      "bound_by": bound[1], "library_ms": None})
-    return rows
+    return rows, {"K1-track rk4": planes_k[2],
+                  "K2-track n=2 rk4": k2_planes[0][2]}
 
 
 def check_fidelity(dev, size=256, steps=800, softness=0.3):
@@ -1061,6 +1341,18 @@ def check_fidelity(dev, size=256, steps=800, softness=0.3):
         return 0.5 * torch.mean((render(mass) - target) ** 2)
 
     out = {}
+    # K3-track: the planes pass with one tangent (d/dmass) that each jvp
+    # below launches, at mass 1.03.
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    s = dataclasses.replace(base, blackhole=dataclasses.replace(
+        base.blackhole, mass=torch.tensor(1.03, device=dev)))
+    k3_planes, ms = time_fwdgrad(o, d, s, mass_spin_tangents(s)[:1])
+    print(f"K3-track planes {size}^2 {steps} steps rk4 (1 tangent): kernel "
+          f"{ms:.3f} ms")
+    print_bound(f"K3-track {size}^2", ms,
+                bound_ms(1, False, k3_planes[0][2], o.shape[0], track=True))
+    check(tk.planes_args(s)[3], "the fidelity scene does not track")
     for m0, eps in ((1.03, 3e-3), (0.98, 3e-3)):
         m = torch.tensor(m0, device=dev)
         _, ad = torch.func.jvp(loss, (m,), (torch.ones_like(m),))
@@ -1105,19 +1397,171 @@ def check_fit(dev, size=256, steps=3, learning_rate=1e-2):
     return out
 
 
+_VARIANT = re.compile(r"(trace_kernel|fwdgrad_kernel)I(Li\d+E)?"
+                      r"Lb(\d)ELb(\d)ELb(\d)E")
+
+
+def variant_of(symbol):
+    """(tangents, disk, adaptive, track) of a kernel's mangled name (K1:
+    0 tangents), or None."""
+    m = _VARIANT.search(symbol)
+    if not m:
+        return None
+    return (int(m[2][2:-1]) if m[2] else 0, *(bool(int(m[k])) for k in
+                                               (3, 4, 5)))
+
+
+def variant_name(v):
+    tan, disk, adaptive, track = v
+    return (f"{'K1' if tan == 0 else f'K2 n={tan}'} "
+            f"{'rkf45' if adaptive else 'rk4'}{' disk' if disk else ''}"
+            f"{' track' if track else ''}")
+
+
 def print_ptxas(libs):
     """ptxas's registers and spills of every kernel variant built."""
     for path in libs.values():
         variant = "?"
         for line in path.with_suffix(".log").read_text().splitlines():
-            m = re.search(r"(trace_kernel|fwdgrad_kernel)I(Li\d+E)?"
-                          r"Lb(\d)ELb(\d)ELb(\d)E", line)
-            if m and "Compiling entry function" in line:
-                tan = m[2][2:-1] if m[2] else "0"
-                variant = (f"{m[1]} tangents={tan} disk={m[3]} "
-                           f"adaptive={m[4]} track={m[5]}")
+            v = variant_of(line)
+            if v and "Compiling entry function" in line:
+                variant = variant_name(v)
             elif "registers" in line or "spill" in line:
                 print(f"ptxas {variant}: {line.split(':', 1)[-1].strip()}")
+
+
+# The SASS opcodes the anatomy counts in the step loop: the reciprocal and
+# reciprocal square root estimates (IEEE division and sqrt start there),
+# the division's range check, FP32 arithmetic, local-memory loads and
+# stores (spills, or arrays kept in local memory), and calls (a
+# division's or sqrt's slow path).
+SASS_OPS = ("MUFU.RCP", "MUFU.RSQ", "FCHK", "FFMA", "FMUL", "FADD", "LDL",
+            "STL", "CALL")
+
+
+def cuobjdump_path():
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/cuobjdump")
+    return str(cand) if cand.exists() else None
+
+
+def sass_mix(lib_path):
+    """{variant: {op: count}} for every kernel in the library, from
+    cuobjdump -sass: the SASS_OPS and all instructions ("instructions")
+    in the step loop, the backward branch of the widest span (the per-ray
+    loop, the step inlined), and in the whole kernel ("kernel"); None
+    without cuobjdump."""
+    tool = cuobjdump_path()
+    if tool is None:
+        return None
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    funcs = re.split(r"\n\s*Function : ", text)[1:]
+    insn = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);")
+    for func in funcs:
+        v = variant_of(func.split("\n", 1)[0])
+        if v is None:
+            continue
+        ops, labels, pending = [], {}, []
+        for line in func.splitlines():
+            lab = re.match(r"^\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab[1])
+                continue
+            m = insn.match(line)
+            if m:
+                addr = int(m[1], 16)
+                for name in pending:
+                    labels[name] = addr
+                pending = []
+                ops.append((addr, m[2], m[3]))
+        span = (0, -1)
+        for addr, op, rest in ops:
+            if not op.startswith("BRA"):
+                continue
+            # The target: a label, `(.L_x_12), or an address, 0x1230.
+            t = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", rest)
+            start = (labels.get(t[1], addr) if t and t[1] else
+                     int(t[2], 16) if t else addr)
+            if start < addr and addr - start > span[1] - span[0]:
+                span = (start, addr)
+
+        def count(sel):
+            c = {k: 0 for k in SASS_OPS}
+            n = 0
+            for addr, op, _ in sel:
+                n += 1
+                key = op if op.startswith("MUFU") else op.split(".")[0]
+                if key in c:
+                    c[key] += 1
+            c["instructions"] = n
+            return c
+
+        loop = count([x for x in ops if span[0] <= x[0] <= span[1]])
+        loop["kernel"] = len(ops)
+        out[v] = loop
+    return out
+
+
+def launch_shares(steps, width):
+    """The share of lane-steps that do work when consecutive threads in
+    groups of `width` (a warp of 32, or a block) hold their resources
+    until the group's slowest ray retires: sum of steps over the sum, per
+    group, of width x its largest step count, in launch order."""
+    import torch
+
+    s = steps.double().flatten()
+    s = torch.cat([s, s.new_zeros((-s.numel()) % width)])
+    return float(s.sum() / (width * s.view(-1, width).amax(1)).sum())
+
+
+def print_anatomy(libs, launches):
+    """Phase 12: every kernel variant's launch shape on this card (block,
+    resident blocks and warps per SM, registers, local memory), its
+    divisions and square roots per step (DIVS_PER_STEP, disk on) and its
+    step loop's SASS mix (sass_mix); then, for launches {name: (steps
+    plane in raster order, depth order, block)}, the lane share (warps of
+    32) and the block share (blocks of 32, 64, 96, 128: the block sizes
+    the kernels may take) in raster and in depth-sorted launch order."""
+    from blackhole_tpu_torch import cuda_lib
+
+    mixes = {}
+    for name, path in libs.items():
+        mix = sass_mix(path)
+        if mix is None:
+            print(f"anatomy: cuobjdump not found: no SASS mix for {name}")
+        mixes.update(mix or {})
+    for name in libs:
+        tans = (0,) if name == "trace" else (1, 2)
+        for tan in tans:
+            for disk, adaptive, track in ((False, False, False),
+                                          (False, True, False),
+                                          (True, False, False),
+                                          (True, True, False),
+                                          (True, False, True),
+                                          (True, True, True)):
+                v = (tan, disk, adaptive, track)
+                row = {"variant": variant_name(v),
+                       **cuda_lib.attributes(tan, disk, adaptive, track)}
+                if disk:
+                    divs, sqrts = DIVS_PER_STEP[(tan, adaptive, track)]
+                    row.update(divs_per_step=divs, sqrts_per_step=sqrts)
+                if v in mixes:
+                    row["sass_loop"] = mixes[v]
+                print(f"anatomy: {json.dumps(row)}")
+    for name, (steps, order, block) in launches.items():
+        for how, perm in (("raster", None), ("depth", order)):
+            st = steps if perm is None else steps[perm]
+            shares = {f"share_{w}": round(launch_shares(st, w), 4)
+                      for w in (32, 64, 96, 128)}
+            print(f"lane share {name} ({how} order, block {block}): "
+                  f"{json.dumps(shares)}")
 
 
 def main() -> int:
@@ -1176,6 +1620,11 @@ def main() -> int:
     print(f"[{time.perf_counter() - T0:.1f} s] phase 5")
     # 5. K3: jvp through the trace.
     print(f"K3 jvp: {json.dumps(check_k3(dev))}")
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 5b")
+    # 5b. K1 and K2 after one and two steps against their plain versions.
+    for stats in check_one_step(dev):
+        print(f"one-step: {json.dumps(stats)}")
 
     print(f"[{time.perf_counter() - T0:.1f} s] phase 6")
     # 6. Depth-sorted against raster.
@@ -1246,6 +1695,7 @@ def main() -> int:
     # the full-size check holds the distribution contract.
     big = parity_stats(hits[0], hits[1], exact=False)
     print(f"parity K1 1024^2 rk4 (distribution contract): {json.dumps(big)}")
+    time_k1_launches(camera, scene, scene45)
 
     print(f"[{time.perf_counter() - T0:.1f} s] phase 8")
     # 8. The gradient half of the main path (bench.py's fwd+bwd).
@@ -1264,12 +1714,12 @@ def main() -> int:
     for name, base in (("rk4", scene), ("rkf45", scene45)):
         time_fwdbwd(name, base, camera, o, d)
 
-    k2, plain_s = check_fwdgrad_main_shapes(o, d, scene, scene45, planes_k,
-                                            ms_k)
+    k2, plain_s, k2_steps = check_fwdgrad_main_shapes(o, d, scene, scene45,
+                                                      planes_k, ms_k)
 
     print(f"[{time.perf_counter() - T0:.1f} s] phase 9")
     # 9. The soft path at 1024^2.
-    track_rows = soft_path(dev, camera, o, d, plain_s)
+    track_rows, track_steps = soft_path(dev, camera, o, d, plain_s)
 
     print(f"[{time.perf_counter() - T0:.1f} s] phase 10")
     # 10. Gradient fidelity of the soft boundary.
@@ -1278,6 +1728,18 @@ def main() -> int:
     print(f"[{time.perf_counter() - T0:.1f} s] phase 11")
     # 11. fit_forward.
     print(f"fit_forward 256^2 rkf45: {json.dumps(check_fit(dev))}")
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 12")
+    # 12. The kernels' anatomy: launch shapes, SASS mix, lane shares.
+    orders = {integ: image.predicted_depth_order(sc, camera, 1024, 1024)
+              for integ, sc in (("rk4", scene), ("rkf45", scene45))}
+    k1_block = cuda_lib.attributes(0, True, False, False)["block"]
+    k2_block = cuda_lib.attributes(2, True, False, False)["block"]
+    print_anatomy(libs, {
+        name: (st, orders["rkf45" if "rkf45" in name else "rk4"],
+               k1_block if name.startswith("K1") else k2_block)
+        for name, st in {"K1 rk4": planes_k[2], **k2_steps,
+                         **track_steps}.items()})
     print(f"[{time.perf_counter() - T0:.1f} s] done")
 
     print(smi)

@@ -3,10 +3,12 @@
 Repeats chip_smoke.py's checks at 32x32: K1 against its plain PyTorch
 version on the same CUDA inputs under the parity contracts, K2 against
 its plain version (RK4: K2's contract, chip_smoke.fwdgrad_stats), the
-tracking variants K1-track and K2-track against theirs,
-depth-sorted traces (forward and fwdgrad) bitwise equal to raster ones,
-and torch.func.jvp of a trace launching K2 once with one tangent (and a
-second derivative through it raising).  Run
+tracking variants K1-track and K2-track against theirs, both kernels
+after one and two steps (the one-step check), depth-sorted traces
+(forward and fwdgrad) bitwise equal to raster ones, launches of two
+scenes queued on one stream and on two streams each reading its own
+scene scalars from the constant bank, and torch.func.jvp of a trace launching K2 once with one
+tangent (and a second derivative through it raising).  Run
 on a machine with a GPU (and without jax, which the suite's conftest
 imports):
 
@@ -103,6 +105,75 @@ def test_jvp_of_trace_launches_k2_once_with_one_tangent(cuda, monkeypatch):
 
     with pytest.raises(NotImplementedError):
         torch.func.jvp(dloss, (m0,), (torch.ones_like(m0),))
+
+
+def test_one_step_matches_plain_on_card(cuda):
+    """K1 and K2 after one and two steps against their plain versions
+    (chip_smoke phase 5b) at 32x32."""
+    stats = chip_smoke.check_one_step(cuda, size=32)
+    assert len(stats) == 16
+    assert all(s["codes_differ"] == 0 for s in stats)
+
+
+def _two_scenes_launched(cuda, size, max_steps, streams):
+    """K1 and K2 of two scenes (mass 1 and 1.2), each launched alone and
+    synchronised, then launched again without a synchronise, the first
+    scene's on streams[0] and the second's on streams[1]; returns the
+    (alone, queued) pairs of (K1 planes, (K2 planes, tangents))."""
+    import dataclasses
+
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    scene, _, o, d = chip_smoke.parity_scene(0.9, True, "rk4", cuda, size,
+                                             max_steps=max_steps)
+    other = dataclasses.replace(scene, blackhole=dataclasses.replace(
+        scene.blackhole, mass=torch.tensor(1.2, device=cuda)))
+    args = tk.planes_args(scene)
+    inputs = [tk.prepare_fwdgrad(o, d, s, chip_smoke.mass_spin_tangents(s))[0]
+              for s in (scene, other)]
+
+    def launch(scal, dscals, inp, dinps):
+        return (tk.trace_planes(scal, inp, *args),
+                tk.trace_planes_fwdgrad(scal, dscals, inp, dinps, *args))
+
+    alone = []
+    for planes_in in inputs:
+        alone.append(launch(*planes_in))
+        torch.cuda.synchronize()
+    queued = []
+    for stream, planes_in in zip(streams, inputs):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            queued.append(launch(*planes_in))
+    torch.cuda.synchronize()
+    assert not torch.equal(alone[0][0], alone[1][0])
+    return alone, queued
+
+
+def _assert_same(alone, queued):
+    for (k1_a, (out_a, dout_a)), (k1_q, (out_q, dout_q)) in zip(alone,
+                                                                queued):
+        assert torch.equal(k1_a.nan_to_num(), k1_q.nan_to_num())
+        assert torch.equal(out_a.nan_to_num(), out_q.nan_to_num())
+        assert torch.equal(dout_a.nan_to_num(), dout_q.nan_to_num())
+
+
+def test_back_to_back_launches_keep_their_scene_scalars(cuda):
+    """The scene scalars go to the constant bank on the launch's stream
+    right before each launch: launches with two scenes queued back to
+    back on one stream, without a synchronise, give each scene's own
+    planes (bitwise those of a launch alone)."""
+    stream = torch.cuda.current_stream()
+    _assert_same(*_two_scenes_launched(cuda, 32, 120, (stream, stream)))
+
+
+def test_launches_on_two_streams_keep_their_scene_scalars(cuda):
+    """A library's launches take turns on its constant bank whatever
+    their streams: a long launch of one scene on one stream and a launch
+    of another scene on a second stream, without a synchronise, give
+    each scene's own planes (bitwise those of a launch alone)."""
+    streams = (torch.cuda.Stream(cuda), torch.cuda.Stream(cuda))
+    _assert_same(*_two_scenes_launched(cuda, 256, 600, streams))
 
 
 def test_kernel_rejects_grad_and_bad_layout(cuda):

@@ -195,25 +195,76 @@ void fwdgrad_rays(const float* scal, const float* dscal, const float* inp,
 extern "C" void bh_trace_planes_fwdgrad_host(
     const float* scal, const float* dscal, const float* inp,
     const float* dinp, float* out, long long n, int max_steps, int disk_on,
-    int adaptive, int track) {
+    int adaptive, int n_tan, int track) {
   fwdgrad_rays<float>(scal, dscal, inp, dinp, out, n, max_steps, disk_on,
-                      adaptive, 2, track);
+                      adaptive, n_tan, track);
+}
+
+// Dual<2>'s quotients elementwise: kind 0 a / b, 1 a / b with a a float
+// (its tangents unused), 2 a / b with b a float; da, db, dq are (2, n).
+extern "C" void bh_dual_div(int kind, const float* a, const float* da,
+                            const float* b, const float* db, float* q,
+                            float* dq, long long n) {
+  using D = bh::Dual<2>;
+  for (long long i = 0; i < n; ++i) {
+    D x(a[i]), y(b[i]);
+    for (int j = 0; j < 2; ++j) {
+      x.d[j] = da[j * n + i];
+      y.d[j] = db[j * n + i];
+    }
+    const D r = kind == 0 ? x / y : kind == 1 ? a[i] / y : x / b[i];
+    q[i] = r.v;
+    for (int j = 0; j < 2; ++j) dq[j * n + i] = r.d[j];
+  }
+}
+
+// The tangent guard on Dual<2> states: v (NS, n) the slots' primal, d
+// (2, NS, n) their tangents, guarded in place.
+template <bool TRACK>
+void dual_guard(const float* v, float* d, long long n) {
+  constexpr int NS = bh::n_state(TRACK);
+  for (long long i = 0; i < n; ++i) {
+    bh::StateT<bh::Dual<2>, TRACK> S;
+    bh::Dual<2>* slot[NS];
+    bh::state_slots(S, slot);
+    for (int k = 0; k < NS; ++k) {
+      slot[k]->v = v[k * n + i];
+      for (int j = 0; j < 2; ++j) slot[k]->d[j] = d[(j * NS + k) * n + i];
+    }
+    bh::guard(S);
+    for (int k = 0; k < NS; ++k)
+      for (int j = 0; j < 2; ++j) d[(j * NS + k) * n + i] = slot[k]->d[j];
+  }
+}
+extern "C" void bh_dual_guard(const float* v, float* d, long long n,
+                              int track) {
+  if (track)
+    dual_guard<true>(v, d, n);
+  else
+    dual_guard<false>(v, d, n);
 }
 
 // A float that counts the floating-point operations the kernels' source
 // performs on it: +, -, *, / and max/min one each, sqrt, log and exp one,
 // the renormalisation's 1 / sqrt two; negation, abs and comparisons none.
-// An FMA is a multiply and an add here: two.  `excess` counts those of
-// them that the source's forms spend beyond the least the same
-// arithmetic needs: 1 / sqrt is one rsqrt; a Dual quotient spends
-// 1 / (b b) once and four operations per tangent where the quotient rule
-// q' = (a' - q b') / b spends three; float / Dual spends 1 / (b b) and two
-// per tangent where k = q / b and one product per tangent do; a Dual
-// max/min takes a weighted sum of the tangents where a select does (the
-// weights differ from 0 and 1 only at a tie).
+// An FMA is a multiply and an add here: two.  It also tallies the IEEE
+// divisions (the renormalisation's 1 / sqrt included) and square roots
+// (rsqrt included): each costs several instructions on the card.
+// `excess` counts the operations that the source's forms spend beyond the
+// least the same arithmetic needs (the least reads the same whatever
+// form implements it): 1 / sqrt is one rsqrt; a Dual quotient spends a
+// reciprocal of the divisor where the quotient rule q' = (a' - q b') / b
+// takes three per tangent; float / Dual spends that reciprocal too where
+// k = q / b and one product per tangent do; a Dual max/min takes a
+// weighted sum of the tangents where a select does (the weights differ
+// from 0 and 1 only at a tie).  The tangent guard skips its rescale where
+// it is the identity: that rescale (a max, a division and a product per
+// slot) counts in the least all the same, as negative excess.
 namespace cnt {
 long long flops = 0;
 long long excess = 0;
+long long divs = 0;
+long long sqrts = 0;
 struct Flop {
   float v;
   Flop() {}
@@ -227,8 +278,10 @@ inline Flop op(float x) { ++flops; return Flop(x); }
 BH_ARITH(+)
 BH_ARITH(-)
 BH_ARITH(*)
-BH_ARITH(/)
 #undef BH_ARITH
+inline Flop operator/(Flop a, Flop b) { ++divs; return op(a.v / b.v); }
+inline Flop operator/(Flop a, float b) { ++divs; return op(a.v / b); }
+inline Flop operator/(float a, Flop b) { ++divs; return op(a / b.v); }
 #define BH_CMP(OP)                                                         \
   inline bool operator OP(Flop a, Flop b) { return a.v OP b.v; }          \
   inline bool operator OP(Flop a, float b) { return a.v OP b; }
@@ -239,10 +292,12 @@ BH_CMP(>=)
 BH_CMP(==)
 #undef BH_CMP
 inline Flop operator-(Flop a) { return Flop(-a.v); }
-inline Flop sqrt_(Flop a) { return op(sqrtf(a.v)); }
+inline Flop sqrt_(Flop a) { ++sqrts; return op(sqrtf(a.v)); }
 inline Flop rsqrt_(Flop a) {
   ++flops;
   ++excess;
+  ++sqrts;
+  ++divs;
   return op(1.0f / sqrtf(a.v));
 }
 inline Flop log_(Flop a) { return op(logf(a.v)); }
@@ -262,12 +317,12 @@ template <int N>
 using D = bh::Dual<N, Flop>;
 template <int N>
 D<N> operator/(const D<N>& a, const D<N>& b) {
-  excess += 2 + N;
+  excess += 1;
   return bh::operator/(a, b);
 }
 template <int N>
 D<N> operator/(float c, const D<N>& b) {
-  excess += 1 + N;
+  excess += 1;
   return bh::operator/(c, b);
 }
 template <int N>
@@ -289,6 +344,18 @@ template <int N>
 D<N> jmin(const D<N>& a, float c) {
   excess += N;
   return bh::jmin(a, c);
+}
+template <int N, bool TRACK>
+void guard(bh::StateT<D<N>, TRACK>& S) {
+  constexpr int NS = bh::n_state(TRACK);
+  D<N>* slot[NS];
+  bh::state_slots(S, slot);
+  for (int i = 0; i < N; ++i) {
+    float mag = fabsf(slot[0]->d[i].v);
+    for (int k = 1; k < NS; ++k) mag = bh::jmax(mag, fabsf(slot[k]->d[i].v));
+    if (mag <= bh::TANGENT_LIMIT) excess -= NS + 2;
+  }
+  bh::guard(S);
 }
 }  // namespace cnt
 
@@ -323,7 +390,7 @@ extern "C" long long bh_count_flops(const float* scal, const float* dscal,
                                     float* out, long long n, int max_steps,
                                     int disk_on, int adaptive, int n_tan,
                                     int track) {
-  cnt::flops = cnt::excess = 0;
+  cnt::flops = cnt::excess = cnt::divs = cnt::sqrts = 0;
   if (n_tan == 0) {
 #define BH_RAY(D, A, T) k1_count_ray<D, A, T>(scal, inp, out, n, i, max_steps)
     for (long long i = 0; i < n; ++i) {
@@ -342,8 +409,11 @@ extern "C" long long bh_count_flops(const float* scal, const float* dscal,
   return cnt::flops;
 }
 
-// The excess (see cnt) of the last bh_count_flops.
+// The excess, divisions and square roots (see cnt) of the last
+// bh_count_flops.
 extern "C" long long bh_count_excess() { return cnt::excess; }
+extern "C" long long bh_count_divs() { return cnt::divs; }
+extern "C" long long bh_count_sqrts() { return cnt::sqrts; }
 """
 
 
@@ -370,17 +440,24 @@ def host_twin(tmp_path_factory):
     lib.bh_trace_planes_fwdgrad_host.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
     lib.bh_trace_planes_fwdgrad_host.restype = None
+    lib.bh_dual_div.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong]
+    lib.bh_dual_div.restype = None
+    lib.bh_dual_guard.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_longlong, ctypes.c_int]
+    lib.bh_dual_guard.restype = None
     lib.bh_count_flops.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
     lib.bh_count_flops.restype = ctypes.c_longlong
-    lib.bh_count_excess.argtypes = []
-    lib.bh_count_excess.restype = ctypes.c_longlong
+    for fn in (lib.bh_count_excess, lib.bh_count_divs, lib.bh_count_sqrts):
+        fn.argtypes = []
+        fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -525,7 +602,7 @@ def test_dual_host_twin_matches_plain(host_twin, integrator, disk, track):
     twin = torch.empty((3 * p, n))
     host_twin.bh_trace_planes_fwdgrad_host(
         scal.data_ptr(), dscal.data_ptr(), inp.data_ptr(), dinp.data_ptr(),
-        twin.data_ptr(), n, steps, int(disk), int(adaptive), int(track))
+        twin.data_ptr(), n, steps, int(disk), int(adaptive), 2, int(track))
     out_t, dout_t = twin[:p], twin[p:].view(2, p, n)
     codes = set(out_p[0].tolist())
     if track:
@@ -556,9 +633,10 @@ def test_dual_host_twin_matches_plain(host_twin, integrator, disk, track):
     assert dc.mean() < 2e-3 and np.percentile(dc, 99) < 3e-2
 
 
-def count_flops_per_step(host_twin, n_tan, adaptive, track):
-    """(least, executed) operations per step of a kernel variant with the
-    disk on, over the 8x8 parity camera's rays at 250 steps."""
+def count_per_step(host_twin, n_tan, adaptive, track):
+    """Per step of a kernel variant with the disk on, over the 8x8 parity
+    camera's rays at 250 steps: (least, executed) operations and (IEEE
+    divisions, square roots)."""
     _, scal, dscal, inp, dinp, _ = _fwdgrad_case(
         "rkf45" if adaptive else "rk4", True, size=8, time_step=0.1,
         max_steps=250, max_dist=80.0)
@@ -570,7 +648,9 @@ def count_flops_per_step(host_twin, n_tan, adaptive, track):
         out.data_ptr(), n, 250, 1, int(adaptive), n_tan, int(track))
     least = flops - host_twin.bh_count_excess()
     steps = float((out if n_tan == 0 else out.view(-1, n)[2]).double().sum())
-    return least / steps, flops / steps
+    return ((least / steps, flops / steps),
+            (host_twin.bh_count_divs() / steps,
+             host_twin.bh_count_sqrts() / steps))
 
 
 def test_flops_per_step_match_chip_smoke(host_twin):
@@ -586,8 +666,151 @@ def test_flops_per_step_match_chip_smoke(host_twin):
     for track in (False, True):
         for adaptive in (False, True):
             for n_tan in (0, 1, 2):
-                got = count_flops_per_step(host_twin, n_tan, adaptive, track)
+                got = count_per_step(host_twin, n_tan, adaptive, track)[0]
                 refs = chip_smoke.FLOPS_PER_STEP[(n_tan, adaptive, track)]
                 for g, ref in zip(got, refs):
                     assert abs(g / ref - 1.0) < 5e-3, (n_tan, adaptive,
                                                        track, g)
+
+
+_VARIANTS = [(n_tan, adaptive, track) for track in (False, True)
+             for adaptive in (False, True) for n_tan in (0, 1, 2)]
+
+
+@pytest.mark.parametrize(
+    "n_tan,adaptive,track", _VARIANTS,
+    ids=[f"n{n}-{'rkf45' if a else 'rk4'}{'-track' if t else ''}"
+         for n, a, t in _VARIANTS])
+def test_divisions_per_step_match_chip_smoke(host_twin, n_tan, adaptive,
+                                             track):
+    """The IEEE divisions (1 / sqrt included) and square roots (rsqrt
+    included) per step of each kernel variant, counted on the counting
+    float, match chip_smoke.DIVS_PER_STEP (within 0.5%, as the operation
+    counts).  K2's quotients take one reciprocal of the divisor (2
+    divisions whatever the tangents, where jax.jvp's literal rule spends
+    2 + n), and its guard divides only where it rescales."""
+    import chip_smoke
+
+    got = count_per_step(host_twin, n_tan, adaptive, track)[1]
+    ref = chip_smoke.DIVS_PER_STEP[(n_tan, adaptive, track)]
+    for g, r in zip(got, ref):
+        assert abs(g / r - 1.0) < 5e-3, (g, r)
+
+
+_PRIMAL_VARIANTS = [(integ, disk, track, n_tan)
+                    for integ in ("rk4", "rkf45")
+                    for disk, track in ((True, False), (False, False),
+                                        (True, True))
+                    for n_tan in (1, 2)]
+
+
+@pytest.mark.parametrize(
+    "integrator,disk,track,n_tan", _PRIMAL_VARIANTS,
+    ids=[f"{i}-{'disk' if d else 'no-disk'}{'-track' if t else ''}-n{n}"
+         for i, d, t, n in _PRIMAL_VARIANTS])
+def test_dual_primal_equals_float_twin(host_twin, integrator, disk, track,
+                                       n_tan):
+    """K2's primal is K1's: the g++ Dual<n> twin's primal planes are
+    bitwise the float twin's (-ffp-contract=off) over whole traces of
+    the parity camera's rays (the wide-step case: they retire), every
+    disk, integrator and track variant; the Dual forms (one reciprocal
+    per quotient, the guard that skips its identity rescale) touch only
+    the tangents."""
+    adaptive = integrator == "rkf45"
+    _, scal, dscal, inp, dinp, steps = _fwdgrad_case(integrator, disk)
+    n = inp.shape[1]
+    p = trace_kernel.n_out(track)
+    k1 = torch.empty((p, n))
+    host_twin.bh_trace_planes_host(scal.data_ptr(), inp.data_ptr(),
+                                   k1.data_ptr(), n, steps, int(disk),
+                                   int(adaptive), int(track))
+    dscal, dinp = dscal[:n_tan].contiguous(), dinp[:n_tan].contiguous()
+    k2 = torch.empty(((1 + n_tan) * p, n))
+    host_twin.bh_trace_planes_fwdgrad_host(
+        scal.data_ptr(), dscal.data_ptr(), inp.data_ptr(), dinp.data_ptr(),
+        k2.data_ptr(), n, steps, int(disk), int(adaptive), n_tan, int(track))
+    assert len(set(k1[0].tolist())) >= 2
+    np.testing.assert_array_equal(k2[:p].numpy(), k1.numpy())
+    assert bool(torch.isfinite(k2[p:]).all())
+
+
+# Dual's quotient forms against jax.jvp's rules (d(x/y) = dx/y +
+# (-dy x) y^-2; d(c/y) = (-dy c) y^-2; d(x/c) = dx/c).  Both round each
+# intermediate once (4 to 5 roundings per tangent), so they may differ by
+# a few ulp of the terms' magnitude |dx/y| + |x dy/y^2|: held to
+# DIV_RTOL, 4 float32 ulp (measured 2.1, 2.0 and 1.0 ulp for a/b, c/b
+# and a/c on these inputs).
+DIV_RTOL = 4 * 2.0 ** -23
+
+
+@pytest.mark.parametrize("kind", ["a/b", "c/b", "a/c"])
+def test_dual_quotients_match_jax(host_twin, kind):
+    """Dual<2>'s quotients (one reciprocal of the divisor per quotient)
+    against jax.jvp of the same division on numpy-seeded float32 inputs,
+    divisors of both signs from 1e-15 to 1e4: the primal bitwise, each
+    tangent within DIV_RTOL of its terms' magnitude."""
+    import jax
+
+    rng = np.random.default_rng(41)
+    n = 4096
+    f = np.float32
+    a = rng.normal(0, 10.0, n).astype(f)
+    b = (rng.choice([-1.0, 1.0], n)
+         * 10.0 ** rng.uniform(-15, 4, n)).astype(f)
+    da = rng.normal(0, 3.0, (2, n)).astype(f)
+    db = rng.normal(0, 3.0, (2, n)).astype(f)
+    q = np.empty(n, f)
+    dq = np.empty((2, n), f)
+    host_twin.bh_dual_div(["a/b", "c/b", "a/c"].index(kind), a.ctypes.data,
+                          da.ctypes.data, b.ctypes.data, db.ctypes.data,
+                          q.ctypes.data, dq.ctypes.data, n)
+    a_, b_ = jnp.asarray(a), jnp.asarray(b)
+    for j in range(2):
+        if kind == "a/b":
+            prim, ref = jax.jvp(lambda x, y: x / y, (a_, b_),
+                                (jnp.asarray(da[j]), jnp.asarray(db[j])))
+        elif kind == "c/b":
+            prim, ref = jax.jvp(lambda y: a_ / y, (b_,), (jnp.asarray(db[j]),))
+        else:
+            prim, ref = jax.jvp(lambda x: x / b_, (a_,), (jnp.asarray(da[j]),))
+        np.testing.assert_array_equal(q, np.asarray(prim))
+        ad = np.float64(da[j]) if kind != "c/b" else 0.0
+        bd = np.float64(db[j]) if kind != "a/c" else 0.0
+        scale = (np.abs(ad / np.float64(b))
+                 + np.abs(np.float64(a) * bd / np.float64(b) ** 2))
+        ref = np.asarray(ref, np.float64)
+        assert np.all(np.isfinite(ref)) and np.all(np.isfinite(dq[j]))
+        assert np.all(np.abs(dq[j] - ref) <= DIV_RTOL * scale), (
+            kind, j, float(np.max(np.abs(dq[j] - ref) / scale)))
+
+
+@pytest.mark.parametrize("track", [False, True], ids=["state", "track"])
+def test_dual_guard_matches_jax(host_twin, track):
+    """The Dual tangent guard, which skips its rescale where it is the
+    identity, against jax.jvp of sensitivity.tangent_guard over the same
+    slots, bitwise, per tangent direction: rays under the limit (most),
+    at it, over it (a rescale), and with a NaN or an infinity (zeroed)."""
+    import jax
+
+    from blackhole_tpu.integrate import sensitivity as jsens
+
+    ns = trace_kernel.N_STATE + (trace_kernel.N_TRACK if track else 0)
+    n = 600
+    rng = np.random.default_rng(29)
+    v = rng.normal(0, 10.0, (ns, n)).astype(np.float32)
+    d = rng.normal(0, 1e5, (2, ns, n)).astype(np.float32)
+    d[0, 3, :40] = 3e7
+    d[1, ns - 1, 40:60] = -5e6
+    d[0, 7, 60:80] = np.nan
+    d[1, 2, 80:100] = np.inf
+    d[:, 5, 100:120] = 1e6
+    got = d.copy()
+    host_twin.bh_dual_guard(v.ctypes.data, got.ctypes.data, n, int(track))
+    for j in range(2):
+        _, ref = jax.jvp(lambda *t: jsens.tangent_guard(1, t),
+                         tuple(jnp.asarray(x) for x in v),
+                         tuple(jnp.asarray(x) for x in d[j]))
+        np.testing.assert_array_equal(got[j], np.stack(
+            [np.asarray(r) for r in ref]))
+    assert np.array_equal(got[:, :, 120:], d[:, :, 120:])
+    assert not np.array_equal(got[:, :, :100], d[:, :, :100])
