@@ -36,6 +36,12 @@ struct Dual {
   }
 };
 
+// A Dual state recomputes its point each step (see CarriesPoint).
+template <int N, typename F>
+struct CarriesPoint<Dual<N, F>> {
+  static constexpr bool value = false;
+};
+
 #define BH_DUAL template <int N, typename F>
 #define BH_D Dual<N, F>
 

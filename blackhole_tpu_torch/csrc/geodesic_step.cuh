@@ -94,9 +94,28 @@ struct TrackSlotsT<T, true> {
   T min_az, gx, gy, gz, gdx, gdy, gdz;
 };
 
-// The 21 state slots of pallas_kernel._step_update, + 7 under TRACK.
+// Whether the state carries its point's quasi-cartesian position from one
+// step to the next (the previous point of the step's chord), where the
+// step would otherwise recompute it: bitwise the value the last step
+// computed for its new point.  Dual (dual.cuh) does not: its guard
+// rescales the state's tangents after each step, and a carried point's
+// tangents would miss that rescale.
+template <typename T>
+struct CarriesPoint {
+  static constexpr bool value = true;
+};
+template <typename T, bool CARRY>
+struct PointSlotsT {};
+template <typename T>
+struct PointSlotsT<T, true> {
+  T cx, cy, cz;
+};
+
+// The 21 state slots of pallas_kernel._step_update, + 7 under TRACK (and
+// the carried point, which is no slot).
 template <typename T, bool TRACK = false>
-struct StateT : TrackSlotsT<T, TRACK> {
+struct StateT : TrackSlotsT<T, TRACK>,
+                PointSlotsT<T, CarriesPoint<T>::value> {
   T r, th, ph, pr, pth, sth, cth, sph, cph;
   T dist, steps, result, hx, hy, hz, lx, ly, lz, t, h, min_r;
 };
@@ -264,6 +283,14 @@ BH_HD void cart(const T& r, const T& st, const T& ct, const T& sp,
   z = r * ct;
 }
 
+// Set the carried point (CarriesPoint) from the state before its first
+// step, by the expression each step computes its new point with.
+template <typename T, bool TRACK>
+BH_HD void start_point(StateT<T, TRACK>& S, const ScalT<T>& s) {
+  if constexpr (CarriesPoint<T>::value)
+    cart(S.r, S.sth, S.cth, S.sph, S.cph, s.a, S.cx, S.cy, S.cz);
+}
+
 template <typename T, bool DISK_ON, bool ADAPTIVE, bool TRACK = false>
 BH_HD void step_update(StateT<T, TRACK>& S, const T& L, const ScalT<T>& s) {
   const bool active = S.result == ACTIVE;
@@ -348,11 +375,12 @@ BH_HD void step_update(StateT<T, TRACK>& S, const T& L, const ScalT<T>& s) {
       err = (c == 0) ? e : jmax(err, e);
     }
     accepted = err <= s.tol;
-    const T log_ratio = log_(jmax(err / s.tol, 1e-30f));
-    const T scale_ok = SAFETY * exp_(-0.2f * log_ratio);
-    const T scale_bad = SAFETY * exp_(-0.25f * log_ratio);
-    T sc = accepted ? scale_ok : scale_bad;
-    sc = (err / s.tol <= 0.0f) ? T(MAX_SCALE) : sc;
+    const T ratio = err / s.tol;
+    const T log_ratio = log_(jmax(ratio, 1e-30f));
+    // The accepted or the rejected branch's exponent, then one exp: the
+    // same bits as selecting between both branches' scales.
+    T sc = SAFETY * exp_((accepted ? -0.2f : -0.25f) * log_ratio);
+    sc = (ratio <= 0.0f) ? T(MAX_SCALE) : sc;
     h_next = h * jclip(sc, MIN_SCALE, MAX_SCALE);
     h_next = jclip(h_next, 1e-4f * dt, 50.0f * dt);
     h_next = jmin(h_next, 0.5f * (S.r - s.r_capture) + 1e-3f * dt);
@@ -386,7 +414,13 @@ BH_HD void step_update(StateT<T, TRACK>& S, const T& L, const ScalT<T>& s) {
   slave_trig(sth_n, cth_n, sph_n, cph_n, th_n, ph_n);
 
   T cx, cy, cz, cx_n, cy_n, cz_n;
-  cart(S.r, S.sth, S.cth, S.sph, S.cph, s.a, cx, cy, cz);
+  if constexpr (CarriesPoint<T>::value) {
+    cx = S.cx;
+    cy = S.cy;
+    cz = S.cz;
+  } else {
+    cart(S.r, S.sth, S.cth, S.sph, S.cph, s.a, cx, cy, cz);
+  }
   cart(r_n, sth_n, cth_n, sph_n, cph_n, s.a, cx_n, cy_n, cz_n);
   const T dxc = cx_n - cx, dyc = cy_n - cy, dzc = cz_n - cz;
   const T step_len = sqrt_(dxc * dxc + dyc * dyc + dzc * dzc + 1e-24f);
@@ -403,39 +437,43 @@ BH_HD void step_update(StateT<T, TRACK>& S, const T& L, const ScalT<T>& s) {
     const T z_prev = -s.sin_incl * cy + s.cos_incl * cz;
     const T z_new = -s.sin_incl * cy_n + s.cos_incl * cz_n;
     const bool crossed = (z_prev * z_new < 0.0f) && advance;
-    const T denom = z_prev - z_new;
-    const T frac = z_prev / (abs_(denom) < EPS ? T(EPS) : denom);
-    const T px = cx + frac * dxc;
-    const T py = cy + frac * dyc;
-    const T pz = cz + frac * dzc;
-    const T yp = s.cos_incl * py + s.sin_incl * pz;
-    const T r_plane = sqrt_(px * px + yp * yp);
-    const bool in_annulus = r_plane >= s.disk_inner && r_plane <= s.disk_outer;
-    if (crossed && in_annulus) {
-      result = T(DISK);
-      S.hx = px;
-      S.hy = py;
-      S.hz = pz;
-      dist_n = S.dist + frac * step_len;
+    // The crossing point only on a crossing step (one in hundreds): no
+    // other step reads it.
+    if (crossed) {
+      const T denom = z_prev - z_new;
+      const T frac = z_prev / (abs_(denom) < EPS ? T(EPS) : denom);
+      const T px = cx + frac * dxc;
+      const T py = cy + frac * dyc;
+      const T pz = cz + frac * dzc;
+      const T yp = s.cos_incl * py + s.sin_incl * pz;
+      const T r_plane = sqrt_(px * px + yp * yp);
+      if (r_plane >= s.disk_inner && r_plane <= s.disk_outer) {
+        result = T(DISK);
+        S.hx = px;
+        S.hy = py;
+        S.hz = pz;
+        dist_n = S.dist + frac * step_len;
+      }
     }
     if constexpr (TRACK) {
       // Crossing-opacity tracking: the least sampled |z'| while radially
       // inside the annulus (strict <), and the post-step position and
       // chord direction there (dxc * inv_len, which the last direction
-      // already holds: a candidate advanced).
+      // already holds: a candidate advanced).  The radius in the plane
+      // only for a candidate.
       const T z_abs = abs_(z_new);
-      const T yp_n = s.cos_incl * cy_n + s.sin_incl * cz_n;
-      const T r_plane_n = sqrt_(cx_n * cx_n + yp_n * yp_n);
-      const bool in_band =
-          r_plane_n >= s.disk_inner && r_plane_n <= s.disk_outer;
-      if (advance && in_band && z_abs < S.min_az) {
-        S.min_az = z_abs;
-        S.gx = cx_n;
-        S.gy = cy_n;
-        S.gz = cz_n;
-        S.gdx = S.lx;
-        S.gdy = S.ly;
-        S.gdz = S.lz;
+      if (advance && z_abs < S.min_az) {
+        const T yp_n = s.cos_incl * cy_n + s.sin_incl * cz_n;
+        const T r_plane_n = sqrt_(cx_n * cx_n + yp_n * yp_n);
+        if (r_plane_n >= s.disk_inner && r_plane_n <= s.disk_outer) {
+          S.min_az = z_abs;
+          S.gx = cx_n;
+          S.gy = cy_n;
+          S.gz = cz_n;
+          S.gdx = S.lx;
+          S.gdy = S.ly;
+          S.gdz = S.lz;
+        }
       }
     }
     if (ADAPTIVE) {
@@ -492,6 +530,11 @@ BH_HD void step_update(StateT<T, TRACK>& S, const T& L, const ScalT<T>& s) {
   S.result = result;
   S.t = t_n;
   S.h = h_new;
+  if constexpr (CarriesPoint<T>::value) {
+    S.cx = cx_n;
+    S.cy = cy_n;
+    S.cz = cz_n;
+  }
 }
 
 // Integrate ray i of the (16, n) input planes to its retirement or
@@ -533,6 +576,7 @@ BH_HD void trace_ray(const float* inp, float* out, long long n, long long i,
     S.gdy = S.ly;
     S.gdz = S.lz;
   }
+  start_point(S, s);
   for (int it = 0; it < max_steps && S.result == ACTIVE; ++it)
     step_update<float, DISK_ON, ADAPTIVE, TRACK>(S, L, s);
   out[0 * n + i] = S.result;

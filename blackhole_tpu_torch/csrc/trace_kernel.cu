@@ -9,21 +9,29 @@
 // or RKF45 with a per-ray step and accept/reject, and its hit record is
 // written once (15 planes, 22 under track).
 //
-// What bounds it on the card: FP32 issue and register pressure, not bytes.
-// A ray reads 16 floats and writes 15 against hundreds of steps of ~750
-// flops (RK4) to ~1500 (RKF45) each, 34 to 55 of them IEEE divisions, so
-// device memory is idle.  The design: one thread per ray with its 21-slot
-// state in registers; the 12 scene scalars in the constant bank, where
-// the step reads them as operands instead of holding them in registers
-// through the loop; inputs and outputs are (planes, n) structure-of-arrays
-// so each plane's loads and stores coalesce; each thread loops to its own
-// retirement (per-ray early exit, where the TPU tile ran to its slowest
-// ray), so a warp's cost is its slowest ray; blocks of 32 threads, so a
-// block's registers free as soon as its one warp retires (the fastest of
-// 32, 64, 96 and 128 at the bench shapes, PERF.md); no
-// padding, the grid is ceil(n / block) with a bounds guard.  Per-ray
-// arithmetic does not depend on the thread's position, so any ray order
-// gives bitwise the same per-ray results.
+// What bounds it on the card: instruction issue and the step's latency,
+// not bytes.  A ray reads 16 floats and writes 15 against hundreds of
+// steps of ~730 flops (RK4) to ~1430 (RKF45) each, 33 to 53 of them IEEE
+// divisions, so device memory is idle.  A 1024x1024 launch runs at ~95%
+// of its static issue ceiling (the step loop's SASS instructions for
+// every warp's slowest ray, one per scheduler and cycle); the prepasses
+// and the 512x512 RKF45 render take 0.9-1.0 of the time their slowest
+// warp takes alone, a dependency chain of up to 1,000 steps (PERF.md,
+// the `regime:` lines).  The design: one thread per ray with its
+// 21-slot state in registers (K1's state also carries its point's
+// cartesian position, which the step would otherwise recompute); a step
+// that computes the disk crossing point only on a crossing step; the 12
+// scene scalars in the constant bank, where the step reads them as
+// operands instead of holding them in registers through the loop; inputs
+// and outputs are (planes, n) structure-of-arrays so each plane's loads
+// and stores coalesce; each thread loops to its own retirement (per-ray
+// early exit, where the TPU tile ran to its slowest ray), so a warp's
+// cost is its slowest ray; blocks of 32 threads, so a block's registers
+// free as soon as its one warp retires (the fastest of 32, 64, 96 and
+// 128 at the bench shapes, PERF.md), and a register floor per
+// integrator (below); no padding, the grid is ceil(n / block) with a
+// bounds guard.  Per-ray arithmetic does not depend on the thread's
+// position, so any ray order gives bitwise the same per-ray results.
 //
 // Built by blackhole_tpu_torch/cuda_lib.py with nvcc into a shared library
 // with the plain C interface below, loaded through ctypes.
@@ -35,6 +43,14 @@
 namespace {
 
 constexpr int kBlock = 32;
+// Least resident blocks per SM for __launch_bounds__, by integrator (one
+// warp each): RK4 at 24 holds the step to 80 registers and 24 warps per
+// SM (without it 93 registers and 20 warps, 98 and 16 with track), with
+// 16 bytes of spill (48 with track);
+// RKF45 takes no floor (1), at 112-120 registers and 16 warps, since a
+// floor of 20 or 24 spills and loses there (PERF.md, the cap sweep).
+constexpr int kMinBlocksRk4 = 24;
+constexpr int kMinBlocksRkf45 = 1;
 
 // The launch's 12 scene scalars, the same for every thread: read from the
 // constant bank where the step uses them rather than held in registers
@@ -45,7 +61,8 @@ __constant__ float c_scal[bh::N_SCAL];
 bh::LaunchOrder order;
 
 template <bool DISK_ON, bool ADAPTIVE, bool TRACK>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock,
+                                  ADAPTIVE ? kMinBlocksRkf45 : kMinBlocksRk4)
     trace_kernel(const float* __restrict__ inp, float* __restrict__ out,
                  long long n, int max_steps) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;

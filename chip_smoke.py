@@ -94,7 +94,9 @@ Phases (each raises on failure; nothing is caught):
      libraries' attributes exports), divisions per step and the step
      loop's SASS mix (cuobjdump -sass of the built libraries); the lane
      and block shares of phases 7-9's 1024x1024 launches in raster and
-     depth-sorted order.
+     depth-sorted order; one `regime:` line per K1 launch of the main and
+     soft paths (print_regimes): its time, the static issue ceiling of
+     its step loop and the tail floor of its slowest warp.
 Every phase prints its start time.  The last three lines are the card,
 one JSON object about the kernels and one JSON object with "ok" and the
 device.  Exits non-zero without a result when no GPU is present or the
@@ -139,18 +141,21 @@ KERNELS = {
 # quotient (a reciprocal of the divisor beside the primal's division) and
 # on a Dual max/min (a weighted sum of the tangents, where a select does);
 # it spends less where the tangent guard is the identity and skips its
-# rescale, which the least counts all the same.  Counted by running csrc's
+# rescale, which the least counts all the same.  Both count only what the
+# step runs: the crossing point on a crossing step, the radius in the
+# plane for a tracking candidate, and in K1 not the previous point, which
+# its state carries.  Counted by running csrc's
 # source on a counting float over the parity camera's rays
 # (tests/test_torch_step.py, test_flops_per_step_match_chip_smoke, holds
 # these numbers).  The bound takes the least; the executed count gives the
 # FP32 issue share.
 FLOPS_PER_STEP = {
-    (0, False, False): (754.0, 756.0), (0, True, False): (1459.5, 1461.5),
-    (1, False, False): (2456.0, 2484.0), (1, True, False): (4633.4, 4736.4),
-    (2, False, False): (4141.0, 4164.0), (2, True, False): (7786.4, 7937.2),
-    (0, False, True): (761.0, 763.0), (0, True, True): (1466.5, 1468.5),
-    (1, False, True): (2493.0, 2514.0), (1, True, True): (4670.4, 4766.4),
-    (2, False, True): (4207.0, 4216.0), (2, True, True): (7852.4, 7989.2),
+    (0, False, False): (731.1, 733.1), (0, True, False): (1433.1, 1435.1),
+    (1, False, False): (2409.1, 2436.1), (1, True, False): (4577.5, 4678.5),
+    (2, False, False): (4063.2, 4085.2), (2, True, False): (7694.2, 7843.0),
+    (0, False, True): (736.9, 738.9), (0, True, True): (1437.6, 1439.6),
+    (1, False, True): (2442.1, 2462.1), (1, True, True): (4606.6, 4700.6),
+    (2, False, True): (4122.6, 4130.6), (2, True, True): (7747.1, 7882.0),
 }
 # IEEE float32 divisions (1 / sqrt included) and square roots (rsqrt
 # included) per step of the same variants, by the same count
@@ -158,12 +163,12 @@ FLOPS_PER_STEP = {
 # division is a reciprocal estimate, its refinement, a range check and a
 # branch to a slow path on the card: about eight instructions.
 DIVS_PER_STEP = {
-    (0, False, False): (34.0, 6.0), (0, True, False): (55.0, 6.0),
-    (1, False, False): (71.0, 6.0), (1, True, False): (115.0, 6.0),
-    (2, False, False): (71.0, 6.0), (2, True, False): (116.0, 6.0),
-    (0, False, True): (34.0, 7.0), (0, True, True): (55.0, 7.0),
-    (1, False, True): (72.0, 7.0), (1, True, True): (116.0, 7.0),
-    (2, False, True): (72.0, 7.0), (2, True, True): (117.0, 7.0),
+    (0, False, False): (33.0, 4.0), (0, True, False): (53.02, 4.05),
+    (1, False, False): (68.0, 5.0), (1, True, False): (110.07, 5.02),
+    (2, False, False): (68.0, 5.0), (2, True, False): (111.07, 5.02),
+    (0, False, True): (33.0, 4.83), (0, True, True): (53.02, 4.7),
+    (1, False, True): (68.83, 5.83), (1, True, True): (110.73, 5.68),
+    (2, False, True): (68.83, 5.83), (2, True, True): (111.73, 5.68),
 }
 # NVIDIA H100 SXM at its 700 W limit: FP32 outside the tensor cores and
 # device memory bandwidth (data sheet).
@@ -981,6 +986,16 @@ def _cuda_ms(fn):
     return res, start.elapsed_time(stop)
 
 
+def _kernel_ms(fn, repeats=3):
+    """(result of an untimed first call, median milliseconds of `repeats`
+    more calls timed with _cuda_ms).  Each timed call's output is dropped
+    before the next, so the caching allocator hands its block back and
+    no device allocation (which waits on the host) falls between the
+    events."""
+    res = fn()
+    return res, statistics.median(_cuda_ms(fn)[1] for _ in range(repeats))
+
+
 def bound_ms(n_tan, adaptive, steps_plane, n_rays, track=False):
     """The least time the card could take for a planes pass: the larger
     of its operations (the least per-step count times this run's steps)
@@ -1024,12 +1039,10 @@ def time_k1_launches(camera, scene, scene45):
             o, d = o[order], d[order]
         scal, inp = tk.prepare(o, d, sc)
         args = tk.planes_args(sc)
-        runs = [_cuda_ms(lambda: tk.trace_planes(scal, inp, *args))
-                for _ in range(3)]
-        ms = statistics.median(t for _, t in runs)
+        planes, ms = _kernel_ms(lambda: tk.trace_planes(scal, inp, *args))
         print(f"K1 {what}: kernel {ms:.3f} ms")
         print_bound(f"K1 {what}", ms,
-                    bound_ms(0, args[2], runs[0][0][2], o.shape[0]))
+                    bound_ms(0, args[2], planes[2], o.shape[0]))
 
 
 def sample_hits(o, d, scene, tangents, planes, pick):
@@ -1048,9 +1061,8 @@ def time_fwdgrad(o, d, scene, tangents):
 
     planes_in, _ = trace_kernel.prepare_fwdgrad(o, d, scene, tangents)
     args = trace_kernel.planes_args(scene)
-    runs = [_cuda_ms(lambda: trace_kernel.trace_planes_fwdgrad(
-        *planes_in, *args)) for _ in range(3)]
-    return runs[0][0], statistics.median(ms for _, ms in runs)
+    return _kernel_ms(lambda: trace_kernel.trace_planes_fwdgrad(
+        *planes_in, *args))
 
 
 def check_fwdgrad_main_shapes(o, d, scene, scene45, k1_planes, k1_ms):
@@ -1234,10 +1246,7 @@ def soft_path(dev, camera, o, d, plain_s):
     pick = slice(None, None, PLAIN_SAMPLE)
     scal, inp = tk.prepare(o, d, scene)
     args = tk.planes_args(scene)
-    runs = [_cuda_ms(lambda: tk.trace_planes(scal, inp, *args))
-            for _ in range(3)]
-    planes_k = runs[0][0]
-    ms_k = statistics.median(ms for _, ms in runs)
+    planes_k, ms_k = _kernel_ms(lambda: tk.trace_planes(scal, inp, *args))
     sample_k = planes_k[:, pick]
     # K1-track's own plain version on the sample, timed; it equals the
     # shared pass's primal bitwise (plain_tracking).
@@ -1277,12 +1286,11 @@ def soft_path(dev, camera, o, d, plain_s):
     # are held at 64x64, phases 3-4).
     scal45, inp45 = tk.prepare(o, d, scene45)
     args45 = tk.planes_args(scene45)
-    runs = [_cuda_ms(lambda: tk.trace_planes(scal45, inp45, *args45))
-            for _ in range(3)]
-    ms45 = statistics.median(ms for _, ms in runs)
+    planes45, ms45 = _kernel_ms(
+        lambda: tk.trace_planes(scal45, inp45, *args45))
     print(f"K1-track planes {size}^2 rkf45: kernel {ms45:.3f} ms")
     print_bound(f"K1-track {size}^2 rkf45", ms45,
-                bound_ms(0, True, runs[0][0][2], n, track=True))
+                bound_ms(0, True, planes45[2], n, track=True))
     k245_planes, ms245 = time_fwdgrad(o, d, scene45,
                                       mass_spin_tangents(scene45))
     print(f"K2-track planes {size}^2 rkf45 (2 tangents): kernel "
@@ -1509,16 +1517,132 @@ def sass_mix(lib_path):
     return out
 
 
+def group_max_steps(steps, width=32):
+    """Each group's largest step count: consecutive groups of `width` rays
+    in launch order (a warp of 32, or a block), the last one padded with
+    idle lanes."""
+    import torch
+
+    s = steps.double().flatten()
+    s = torch.cat([s, s.new_zeros((-s.numel()) % width)])
+    return s.view(-1, width).amax(1)
+
+
 def launch_shares(steps, width):
     """The share of lane-steps that do work when consecutive threads in
     groups of `width` (a warp of 32, or a block) hold their resources
     until the group's slowest ray retires: sum of steps over the sum, per
     group, of width x its largest step count, in launch order."""
+    return float(steps.double().sum()
+                 / (width * group_max_steps(steps, width)).sum())
+
+
+def regime(steps, ms, floor_ms, loop_insns, warps_per_sm, sms, clock_mhz):
+    """The two regimes of a K1 launch from its step-count plane (launch
+    order) and its time: rays, warps and waves (warps over the resident
+    warps of all SMs), mean and max steps; the static issue ceiling, the
+    step loop's SASS instructions times the sum over warps of the warp's
+    largest step count, over SMs x 4 schedulers x the SM clock (one warp
+    instruction per scheduler and cycle); the tail floor, the time of the
+    same kernel on the 32 rays of the slowest warp alone; both as shares
+    of the launch's time.  loop_insns None (no cuobjdump): no ceiling."""
+    s = steps.double().flatten()
+    warp_steps = float(group_max_steps(s).sum())
+    ceiling = (None if loop_insns is None else
+               1e3 * loop_insns * warp_steps / (sms * 4 * clock_mhz * 1e6))
+    n_warps = -(-s.numel() // 32)
+    return {"rays": s.numel(), "warps": n_warps,
+            "waves": n_warps / (warps_per_sm * sms),
+            "mean_steps": float(s.mean()), "max_steps": float(s.max()),
+            "warp_steps": warp_steps, "sass_loop": loop_insns,
+            "sm_clock_mhz": clock_mhz, "ms": ms,
+            "issue_ceiling_ms": ceiling,
+            "issue_share": None if ceiling is None else ceiling / ms,
+            "tail_floor_ms": floor_ms, "tail_share": floor_ms / ms}
+
+
+def sm_clock_mhz(launch, ms):
+    """The SM clock nvidia-smi reads while about 0.6 s of `launch` (a
+    kernel of `ms` each) is queued on the card."""
     import torch
 
-    s = steps.double().flatten()
-    s = torch.cat([s, s.new_zeros((-s.numel()) % width)])
-    return float(s.sum() / (width * s.view(-1, width).amax(1)).sum())
+    for _ in range(max(2, math.ceil(600.0 / max(ms, 1e-3)))):
+        launch()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         "-i", "0"], capture_output=True, text=True, check=True).stdout
+    torch.cuda.synchronize()
+    return float(out.split()[0])
+
+
+def k1_occupancy(disk_on, adaptive, track):
+    """(resident warps per SM, SMs) of a K1 variant on this card."""
+    import torch
+
+    from blackhole_tpu_torch import cuda_lib
+
+    return (cuda_lib.attributes(0, disk_on, adaptive, track)["warps_per_sm"],
+            torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def k1_launches(dev, size=1024):
+    """Every K1 launch of the main path (phases 7-8) and the soft path
+    (phase 9) at image size `size`: [(name, scene, o, d)], the rays in
+    the launch's order: render_image's depth-order prepasses (size / 8
+    per side, raster order) and its renders (depth order), and the
+    gradient half's prepasses; and, timed beside them, K1-track RKF45 on
+    the soft scene's size x size rays in raster order."""
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import image
+
+    out = []
+    for tag, softness in (("K1", 0.0), ("K1-track", 0.3)):
+        rk4, camera = bench_scene(dev, softness=softness)
+        rkf45, _ = bench_scene(dev, "rkf45", softness=softness)
+        cases = [("rk4 prepass", rk4, size // 8, False),
+                 ("rk4 render", rk4, size, True),
+                 ("rkf45 prepass", rkf45, size // 8, False)]
+        if softness == 0.0:
+            cases += [("rkf45 prepass", rkf45, size // 16, False),
+                      ("rkf45 render", rkf45, size // 2, True)]
+        else:
+            cases += [("rkf45 raster", rkf45, size, False)]
+        for what, scene, n, depth in cases:
+            o, d = cam.generate_rays(camera, n, n)
+            o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+            if depth:
+                order = image.predicted_depth_order(scene, camera, n, n)
+                o, d = o[order], d[order]
+            out.append((f"{tag} {what} {n}^2", scene, o, d))
+    return out
+
+
+def print_regimes(dev, mixes, card, size=1024):
+    """Phase 12: one `regime:` line per K1 launch of k1_launches: its
+    time (CUDA events, median of 3), the SM clock beside it, and
+    regime()'s issue ceiling (the variant's SASS loop from mixes, None
+    without) and tail floor (median of 5), with the card."""
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    rows = []
+    for name, scene, o, d in k1_launches(dev, size):
+        scal, inp = tk.prepare(o, d, scene)
+        args = tk.planes_args(scene)
+        disk_on, _, adaptive, track = args
+        planes, ms = _kernel_ms(lambda: tk.trace_planes(scal, inp, *args))
+        steps = planes[2]
+        w = int(group_max_steps(steps).argmax())
+        tail = inp[:, 32 * w:32 * (w + 1)].contiguous()
+        _, floor_ms = _kernel_ms(
+            lambda: tk.trace_planes(scal, tail, *args), repeats=5)
+        mhz = sm_clock_mhz(lambda: tk.trace_planes(scal, inp, *args), ms)
+        loop = mixes.get((0, disk_on, adaptive, track), {}).get("instructions")
+        row = {"launch": name, "card": card,
+               **regime(steps, ms, floor_ms, loop,
+                        *k1_occupancy(disk_on, adaptive, track), mhz)}
+        print(f"regime: {json.dumps(row)}")
+        rows.append(row)
+    return rows
 
 
 def print_anatomy(libs, launches):
@@ -1528,7 +1652,8 @@ def print_anatomy(libs, launches):
     step loop's SASS mix (sass_mix); then, for launches {name: (steps
     plane in raster order, depth order, block)}, the lane share (warps of
     32) and the block share (blocks of 32, 64, 96, 128: the block sizes
-    the kernels may take) in raster and in depth-sorted launch order."""
+    the kernels may take) in raster and in depth-sorted launch order.
+    Returns the SASS mixes {variant: mix}."""
     from blackhole_tpu_torch import cuda_lib
 
     mixes = {}
@@ -1562,6 +1687,7 @@ def print_anatomy(libs, launches):
                       for w in (32, 64, 96, 128)}
             print(f"lane share {name} ({how} order, block {block}): "
                   f"{json.dumps(shares)}")
+    return mixes
 
 
 def main() -> int:
@@ -1675,10 +1801,8 @@ def main() -> int:
 
     scal, inp = trace_kernel.prepare(o, d, scene)
     args = (True, scene.config.max_steps, False)
-    runs = [_cuda_ms(lambda: trace_kernel.trace_planes(scal, inp, *args))
-            for _ in range(3)]
-    planes_k = runs[0][0]
-    ms_k = statistics.median(ms for _, ms in runs)
+    planes_k, ms_k = _kernel_ms(
+        lambda: trace_kernel.trace_planes(scal, inp, *args))
     t0 = time.perf_counter()
     planes_p, ms_p = _cuda_ms(lambda: trace_kernel.trace_planes_plain(
         scal, inp, *args))
@@ -1735,11 +1859,13 @@ def main() -> int:
               for integ, sc in (("rk4", scene), ("rkf45", scene45))}
     k1_block = cuda_lib.attributes(0, True, False, False)["block"]
     k2_block = cuda_lib.attributes(2, True, False, False)["block"]
-    print_anatomy(libs, {
+    mixes = print_anatomy(libs, {
         name: (st, orders["rkf45" if "rkf45" in name else "rk4"],
                k1_block if name.startswith("K1") else k2_block)
         for name, st in {"K1 rk4": planes_k[2], **k2_steps,
                          **track_steps}.items()})
+    # The two regimes of every K1 launch of the main and soft paths.
+    print_regimes(dev, mixes, smi)
     print(f"[{time.perf_counter() - T0:.1f} s] done")
 
     print(smi)

@@ -7,6 +7,7 @@ CPU twin's two kinds.  These hold the arithmetic and the parsing on
 made-up inputs; the card runs them on the kernels (chip_smoke.py).
 """
 
+import dataclasses
 import subprocess
 
 import numpy as np
@@ -156,3 +157,77 @@ def test_clamped_rays_are_rejected_first_steps_deaf_to_the_tolerance():
         assert bool(rejected.all()) == want_held
         assert bool((held & ~rejected).any()) is False
         assert bool(held.any()) == want_held
+
+
+def test_regime_arithmetic():
+    """The static issue ceiling is the loop's instructions times the sum
+    of each warp's largest step count over SMs x 4 x the clock; waves are
+    warps over the resident warps of all SMs; the last warp's idle lanes
+    count no steps."""
+    steps = torch.tensor([10.0] * 32 + [1.0] * 31 + [50.0] + [7.0] * 3)
+    row = chip_smoke.regime(steps, ms=2.0, floor_ms=0.5, loop_insns=1000,
+                            warps_per_sm=4, sms=2, clock_mhz=1000.0)
+    assert row["rays"] == 67 and row["warps"] == 3
+    assert row["waves"] == pytest.approx(3 / 8)
+    assert row["warp_steps"] == 10.0 + 50.0 + 7.0
+    assert row["max_steps"] == 50.0
+    assert row["mean_steps"] == pytest.approx(float(steps.double().mean()))
+    want = 1000 * 67.0 / (2 * 4 * 1000e6) * 1e3
+    assert row["issue_ceiling_ms"] == pytest.approx(want)
+    assert row["issue_share"] == pytest.approx(want / 2.0)
+    assert row["tail_share"] == 0.25
+    none = chip_smoke.regime(steps, 2.0, 0.5, None, 4, 2, 1000.0)
+    assert none["issue_ceiling_ms"] is None and none["issue_share"] is None
+
+
+def test_regimes_run_on_cpu(monkeypatch, capsys):
+    """Phase 12's regime lines at 16x16 on the CPU, where the launches are
+    the plain version's: every K1 launch of the main and soft paths (the
+    prepasses at a sixteenth and an eighth of the side, the renders in
+    depth order), the tail floor timed on the 32 rays of the slowest
+    warp, which is the one with the largest step count."""
+    import time
+
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    def cpu_ms(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    tails = []
+    plain = tk.trace_planes
+
+    def traced(scal, inp, *args):
+        tails.append(inp.shape[1])
+        return plain(scal, inp, *args)
+
+    bench = chip_smoke.bench_scene
+
+    def short(*a, **k):  # 20 steps: the plain version steps on the CPU
+        scene, camera = bench(*a, **k)
+        return dataclasses.replace(scene, config=dataclasses.replace(
+            scene.config, max_steps=20)), camera
+
+    monkeypatch.setattr(chip_smoke, "bench_scene", short)
+    monkeypatch.setattr(chip_smoke, "_cuda_ms", cpu_ms)
+    monkeypatch.setattr(chip_smoke, "sm_clock_mhz", lambda launch, ms: 1980.0)
+    monkeypatch.setattr(chip_smoke, "k1_occupancy", lambda *v: (20, 132))
+    monkeypatch.setattr(tk, "trace_planes", traced)
+    rows = chip_smoke.print_regimes("cpu", {(0, True, False, False):
+                                            {"instructions": 900}},
+                                    "a card, 700 W", size=16)
+    names = [r["launch"] for r in rows]
+    assert names == ["K1 rk4 prepass 2^2", "K1 rk4 render 16^2",
+                     "K1 rkf45 prepass 2^2", "K1 rkf45 prepass 1^2",
+                     "K1 rkf45 render 8^2", "K1-track rk4 prepass 2^2",
+                     "K1-track rk4 render 16^2", "K1-track rkf45 prepass 2^2",
+                     "K1-track rkf45 raster 16^2"]
+    assert capsys.readouterr().out.count("regime: ") == 9
+    assert rows[1]["rays"] == 256 and rows[1]["warps"] == 8
+    assert rows[1]["issue_ceiling_ms"] is not None
+    assert all(r["issue_ceiling_ms"] is None for r in rows[2:])
+    assert all(r["card"] == "a card, 700 W" and r["tail_floor_ms"] > 0
+               for r in rows)
+    # Each launch's tail pass runs 32 rays (fewer when the launch has).
+    assert 32 in tails and all(r["max_steps"] <= 20 for r in rows)

@@ -11,6 +11,7 @@
 
 import ctypes
 import dataclasses
+import hashlib
 import math
 import shutil
 import subprocess
@@ -378,6 +379,7 @@ void k1_count_ray(const float* scal, const float* inp, float* out,
   if constexpr (T) bh::init_track_slots(x, 1e9f, init + bh::N_STATE);
   for (int k = 0; k < NS; ++k) *slot[k] = Flop(init[k]);
   const Flop L(x[5]);
+  bh::start_point(S, s);
   for (int it = 0; it < max_steps && S.result == bh::ACTIVE; ++it)
     bh::step_update<Flop, D, A, T>(S, L, s);
   out[i] = S.steps.v;
@@ -814,3 +816,191 @@ def test_dual_guard_matches_jax(host_twin, track):
             [np.asarray(r) for r in ref]))
     assert np.array_equal(got[:, :, 120:], d[:, :, 120:])
     assert not np.array_equal(got[:, :, :100], d[:, :, :100])
+
+
+# --- K1's planes held bitwise to the reference build --------------------
+
+# The g++ twin's K1 output planes (see _HOST_LOOP), each plane's bytes
+# hashed with SHA-256 (the first 16 hex digits), for the six K1 variants
+# at the 64x64 parity cases (spin 0.9, 250 steps) and for the RKF45
+# variants at chip_smoke.CONTROLLER_STATES, where every first step is
+# rejected.  The values were made by building csrc/ as it stood at commit
+# 18ff8ea (before the step carried its point across steps, computed the
+# crossing point only on crossing steps and took one exp in the
+# controller) into this twin with the same flags and running these cases:
+# a change of the step's source that keeps every primal bit keeps them.
+# Each entry: the SHA-256 of the inputs (scal, then inp; they come from
+# torch's CPU functions, so a change there shows apart from the step's),
+# then one digest per plane.  K1_BITS_RAYS (tests/k1_bits_rays.npz) holds
+# one byte per ray of the same build, a hash over the ray's planes, so
+# that a failure counts the rays that differ.
+K1_PLANE_NAMES = ("result", "dist", "steps", "hx", "hy", "hz", "lx", "ly",
+                  "lz", "r", "sth", "cth", "sph", "cph", "min_r", "min_az",
+                  "gx", "gy", "gz", "gdx", "gdy", "gdz")
+K1_BITS = {
+    "parity-rk4-disk": (
+        "5c018a451ebf77e1 ceabc97dee2153cc 843e65a73cd1ed04 cdd9e4e5cfb793b4 "
+        "bb03dc620a9ac614 584a0b368c756c49 5def877352c26bd6 27787f1a1245378a "
+        "5e8cc8018167e114 6745ec7149402ab5 ab2b969b1e5e790e 5904eee3757a30bb "
+        "89a37ed5ec3c4548 f3946448300f8dd4 7c210e2dcaff98c0 77c7824667ccef0b"
+    ),
+    "parity-rk4-no-disk": (
+        "5c018a451ebf77e1 969dff138e727074 8f44dfd01db9d96d d770fd6151d55989 "
+        "4fe7b59af6de3b66 22337129a84cb448 dee6e5303db9f9c2 c4d091878b062a26 "
+        "4e9655caaa714855 259ded7c38ec36f7 d3927a97528a6167 55c5b04cadee686c "
+        "f454dbe56a9a8e5d 432838edc6a05b2d 85dc52fa82fb73cb a7d5e045c0ef773b"
+    ),
+    "parity-rk4-disk-track": (
+        "5c018a451ebf77e1 ceabc97dee2153cc 843e65a73cd1ed04 cdd9e4e5cfb793b4 "
+        "bb03dc620a9ac614 584a0b368c756c49 5def877352c26bd6 27787f1a1245378a "
+        "5e8cc8018167e114 6745ec7149402ab5 ab2b969b1e5e790e 5904eee3757a30bb "
+        "89a37ed5ec3c4548 f3946448300f8dd4 7c210e2dcaff98c0 77c7824667ccef0b "
+        "bcc504f118b8d872 63563bdf7b3f4050 70d8697d4842b4ba 57ea67927d77cb06 "
+        "b767136b4808c767 0ca67276d17b4f9c 2c3ba52dfd3302ea"
+    ),
+    "parity-rkf45-disk": (
+        "5c018a451ebf77e1 2eee78fff86fa3d5 8a6fafa4ed60d086 4dd14a22a2b0ebee "
+        "de8d13396762b091 266438df07618f22 c7f445d285524b5c fd58602f2229d61c "
+        "395be5ba717b9db6 ebfad5d0b57c7cfe 2ab3f04604d83f0c acea2a94878c94e3 "
+        "3323fe820d3987bb 78a915ed0fe74f8e 459a18a48c542540 6068135d3dc4d6d9"
+    ),
+    "parity-rkf45-no-disk": (
+        "5c018a451ebf77e1 66ceeee0bedefb13 c639f13daf18b758 6520dd556b46036a "
+        "b0d86ee77f0ae14e d0157523cc71f53d 7b46e1cd7d09c2be 139b35682000758d "
+        "c22f1a63b3f060bb 2ebf1980918bbc5b 79c4d9f527e0c1c2 1916948f5c370e55 "
+        "4ca631b63dfa0cbd 04bb87106e1932b0 f531b1369d32fb4b 874d1a4cbe0afa4b"
+    ),
+    "parity-rkf45-disk-track": (
+        "5c018a451ebf77e1 2eee78fff86fa3d5 8a6fafa4ed60d086 4dd14a22a2b0ebee "
+        "de8d13396762b091 266438df07618f22 c7f445d285524b5c fd58602f2229d61c "
+        "395be5ba717b9db6 ebfad5d0b57c7cfe 2ab3f04604d83f0c acea2a94878c94e3 "
+        "3323fe820d3987bb 78a915ed0fe74f8e 459a18a48c542540 6068135d3dc4d6d9 "
+        "3d49e251c39adfc0 fcddf179fd037de7 72c12b60e827c36b 39bda1d0112dc4d1 "
+        "9ecba68cddaad22c 46f63659f8fa81d7 813c1da75ea61cfb"
+    ),
+    "clamped-rkf45-disk": (
+        "0500b337c10f2f42 4409efd063a28f93 8efa88128c41b973 bd2de8ee4163b73b "
+        "cb80a6610376a371 e751f10b358a14a5 c94a37329f6a8d8f e71d78262d7a5a3c "
+        "84ad3109a4eb3f98 d6436f62955d16bc 0b5234c32df610b4 7a60dc5ef5032e50 "
+        "fadf02013fa1d3f6 fa274681163cc001 13c6d2bb592cbae9 c0bf3717480d817e"
+    ),
+    "clamped-rkf45-no-disk": (
+        "0500b337c10f2f42 b120ab275a4bd002 82b0ad6cc9f65aa3 8edc3b57c11e1b10 "
+        "a7c1729f1f4c926d 088310577c50ba9b f56f4cbc9675fd2a 9757d631a29c86ce "
+        "f21cd9342794d800 27c8aea90931d839 cca6a8d67551265a 201c3c75b2fb8a44 "
+        "985fb915510311ad 1666db9117f7ab47 3a7298883a069855 53049f1ed206f913"
+    ),
+    "clamped-rkf45-disk-track": (
+        "0500b337c10f2f42 4409efd063a28f93 8efa88128c41b973 bd2de8ee4163b73b "
+        "cb80a6610376a371 e751f10b358a14a5 c94a37329f6a8d8f e71d78262d7a5a3c "
+        "84ad3109a4eb3f98 d6436f62955d16bc 0b5234c32df610b4 7a60dc5ef5032e50 "
+        "fadf02013fa1d3f6 fa274681163cc001 13c6d2bb592cbae9 c0bf3717480d817e "
+        "d9aa7dc9b21db633 4d66b1590452ce37 55a2a14cbb5b4bda fbdc2264c0f99b67 "
+        "1a2c1a00c3ba2af0 b8023eaf08af7c33 b0482ec348a15554"
+    ),
+    "rejected-rkf45-disk": (
+        "f16768dca7079ed3 9dfb9ba478efd19d 2785a2d53776d17a c1c7a2a41da82566 "
+        "d412a69c7efecf69 aa7ca2fde48d877c 8765e1481bc8c8d3 527e900c35a14505 "
+        "971daffa360dd9f4 15f67bc45c85c88c c96aa5995aad9bd5 3df22307f7ba55a6 "
+        "0a3106746d2a5af7 6a7ff136e2aa3ecd 86bf96de21e378de 93812425c2259977"
+    ),
+    "rejected-rkf45-no-disk": (
+        "f16768dca7079ed3 5e4c92bab0a37f79 048808cfb4d97a3f 0d0cd5d40accf512 "
+        "8493d63458f75bba 6da52ca8f115fa3b c120f6ae7aec6670 551a85e876be81e0 "
+        "d94d43f170d72643 21f27de7eebe0369 dd77f9b0c70c37f5 e4b9fba4209f5a01 "
+        "21c6534a59232944 6cb89bf9f1f0dfae 0b3942de41262a96 1c096d5b850087e8"
+    ),
+    "rejected-rkf45-disk-track": (
+        "f16768dca7079ed3 9dfb9ba478efd19d 2785a2d53776d17a c1c7a2a41da82566 "
+        "d412a69c7efecf69 aa7ca2fde48d877c 8765e1481bc8c8d3 527e900c35a14505 "
+        "971daffa360dd9f4 15f67bc45c85c88c c96aa5995aad9bd5 3df22307f7ba55a6 "
+        "0a3106746d2a5af7 6a7ff136e2aa3ecd 86bf96de21e378de 93812425c2259977 "
+        "c30a288c641a7b5b 91dee33c79f2eb39 870ca1e61fc03de2 c508b2ee7471e30f "
+        "979374d026f7a8b5 139a5a3661a6d77c 614743cff7f8c71f"
+    ),
+}
+K1_BITS_RAYS = Path(__file__).resolve().parent / "k1_bits_rays.npz"
+
+_BITS_CASES = ([("parity", i, d, t) for i in ("rk4", "rkf45")
+                for d, t in ((True, False), (False, False), (True, True))]
+               + [(c, "rkf45", d, t) for c in ("clamped", "rejected")
+                  for d, t in ((True, False), (False, False), (True, True))])
+
+
+def _bits_id(states, integrator, disk, track):
+    return (f"{states}-{integrator}-{'disk' if disk else 'no-disk'}"
+            f"{'-track' if track else ''}")
+
+
+def _bits_inputs(states, integrator, disk, track):
+    """(scal, inp, planes_args) of a bits case: the parity case of
+    chip_smoke.parity_scene at 64x64, or its controller states
+    (chip_smoke.controller_scene; disk off by replacing the scene's)."""
+    import chip_smoke
+
+    if states == "parity":
+        scene, _, o, d = chip_smoke.parity_scene(
+            0.9, disk, integrator, "cpu", 64, softness=0.3 if track else 0.0)
+    else:
+        scene, o, d = chip_smoke.controller_scene("cpu", 64, track, states)
+        scene = dataclasses.replace(scene, disk_enabled=disk)
+    scal, inp = trace_kernel.prepare(o, d, scene)
+    return scal, inp, trace_kernel.planes_args(scene)
+
+
+def _k1_twin_planes(lib, scal, inp, args):
+    """The twin's K1 planes (n_out, n) for prepared inputs."""
+    disk, max_steps, adaptive, track = args
+    n = inp.shape[1]
+    out = torch.empty((trace_kernel.n_out(track), n), dtype=torch.float32)
+    lib.bh_trace_planes_host(scal.data_ptr(), inp.data_ptr(), out.data_ptr(),
+                             n, max_steps, int(disk), int(adaptive),
+                             int(track))
+    return out
+
+
+def _plane_digests(scal, inp, out):
+    """[SHA-256 of the inputs, then of each plane], 16 hex digits each."""
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    return [sha(scal, inp)] + [sha(p) for p in out]
+
+
+def _ray_digests(out):
+    """One byte per ray: FNV-1a over the bits of the ray's planes."""
+    bits = out.contiguous().numpy().view(np.uint32).astype(np.uint64)
+    h = np.full(bits.shape[1], 14695981039346656037, np.uint64)
+    for row in bits:
+        h = (h ^ row) * np.uint64(1099511628211)
+    return (h >> np.uint64(56)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("case", _BITS_CASES,
+                         ids=[_bits_id(*c) for c in _BITS_CASES])
+def test_k1_twin_planes_bitwise_to_reference_build(host_twin, case):
+    """Every K1 output plane of the twin, bitwise the reference build's
+    (K1_BITS): the parity cases of all six variants and the RKF45
+    variants at the controller states, whose first steps are rejected,
+    so that the controller's rejected branch (its h and scale) is held
+    without FMA noise.  A failure names the planes and counts the rays
+    whose planes differ (one byte per ray: a difference may hide in 1 of
+    256)."""
+    key = _bits_id(*case)
+    scal, inp, args = _bits_inputs(*case)
+    out = _k1_twin_planes(host_twin, scal, inp, args)
+    got = _plane_digests(scal, inp, out)
+    want = K1_BITS[key].split()
+    assert got[0] == want[0], (
+        f"{key}: the inputs differ from those the digests were made from "
+        f"(torch's CPU functions), not the step")
+    bad = [K1_PLANE_NAMES[k] for k in range(len(got) - 1)
+           if got[1 + k] != want[1 + k]]
+    if bad:
+        rays = np.load(K1_BITS_RAYS)[key]
+        n_diff = int((_ray_digests(out) != rays).sum())
+        pytest.fail(f"{key}: planes {bad} differ from the reference build's "
+                    f"on at least {n_diff} of {out.shape[1]} rays")
