@@ -12,8 +12,10 @@ device raises, through torch's own error, instead of quietly landing
 on the CPU.
 
 scene_from_reference / camera_from_reference carry a scene from any
-object with the JAX dataclasses' attribute names into this package,
-reading each leaf through numpy (so they never import jax).
+object with the JAX dataclasses' attribute names into this package, and
+params_from_reference a dict of arrays (such as the JAX package's
+grad.inverse.pack_params gives) into tensors, reading each leaf
+through numpy (so they never import jax).
 
 The records are registered as pytrees (torch.utils._pytree): their
 tensor fields are the leaves, their static fields the context.  So a
@@ -226,28 +228,38 @@ class Hit:
 # --- state carry from the JAX package -----------------------------------
 
 
-def _leaf(x, device) -> Tensor:
-    return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+def _leaf(x, device, dtype=torch.float32) -> Tensor:
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def _record(cls, ref, device):
-    return cls(*(_leaf(getattr(ref, f.name), device)
+def _record(cls, ref, device, dtype):
+    return cls(*(_leaf(getattr(ref, f.name), device, dtype)
                  for f in dataclasses.fields(cls)))
 
 
-def camera_from_reference(camera_like, device="cuda") -> Camera:
+def camera_from_reference(camera_like, device="cuda",
+                          dtype=torch.float32) -> Camera:
     """Camera from any object with Camera's attribute names."""
-    return _record(Camera, camera_like, device)
+    return _record(Camera, camera_like, device, dtype)
 
 
-def scene_from_reference(scene_like, device="cuda") -> Scene:
+def params_from_reference(params_like, device="cuda",
+                          dtype=torch.float32) -> dict:
+    """A parameter dict (name -> array, such as the JAX package's
+    pack_params gives) as tensors."""
+    return {k: _leaf(v, device, dtype) for k, v in params_like.items()}
+
+
+def scene_from_reference(scene_like, device="cuda",
+                         dtype=torch.float32) -> Scene:
     """Scene from any object with the JAX Scene's attribute names
-    (blackhole, disk, config, disk_enabled, env_map)."""
+    (blackhole, disk, config, disk_enabled, env_map); the environment
+    map stays float32."""
     cfg = scene_like.config
     config = SimConfig(
-        time_step=_leaf(cfg.time_step, device),
-        max_ray_distance=_leaf(cfg.max_ray_distance, device),
-        tolerance=_leaf(cfg.tolerance, device),
+        time_step=_leaf(cfg.time_step, device, dtype),
+        max_ray_distance=_leaf(cfg.max_ray_distance, device, dtype),
+        tolerance=_leaf(cfg.tolerance, device, dtype),
         max_steps=int(cfg.max_steps),
         integrator=str(cfg.integrator),
         enable_doppler=bool(cfg.enable_doppler),
@@ -259,8 +271,8 @@ def scene_from_reference(scene_like, device="cuda") -> Scene:
     )
     env = getattr(scene_like, "env_map", None)
     return Scene(
-        blackhole=_record(BlackHole, scene_like.blackhole, device),
-        disk=_record(Disk, scene_like.disk, device),
+        blackhole=_record(BlackHole, scene_like.blackhole, device, dtype),
+        disk=_record(Disk, scene_like.disk, device, dtype),
         config=config,
         disk_enabled=bool(scene_like.disk_enabled),
         env_map=None if env is None else _leaf(env, device),

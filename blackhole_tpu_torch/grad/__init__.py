@@ -1,4 +1,4 @@
-"""Gradient engines of the port (forward mode).
+"""Gradient engines of the port.
 
 +----------------------+--------------------------------------------+
 | workload             | engine                                     |
@@ -11,9 +11,13 @@
 |                      | K2 with one tangent (K3)                   |
 | fitting an image     | inverse.fit_forward: Adam, one             |
 |                      | render_value_and_grad pass per step        |
+| many params          | diff_trace (reverse mode through the       |
+|                      | checkpointed step loop) or                 |
+|                      | bucketed.grad_over_chunks (per-chunk step  |
+|                      | budgets sized by one kernel pass);         |
+|                      | inverse.fit: Adam on image_loss            |
 +----------------------+--------------------------------------------+
 
-Reverse mode (the JAX package's diff_trace, bucketed, and inverse's
-image_loss, make_train_step, fit) is not ported yet: a .backward()
-through the geodesic kernel raises.
+Reverse mode runs the XLA engine's trace_step in plain torch;
+.backward() through the geodesic kernel itself raises.
 """

@@ -1,22 +1,24 @@
-"""Inverse rendering by forward mode: fit scene parameters to an image.
+"""Inverse rendering: fit scene parameters to a target image.
 
-PyTorch counterpart of the forward-mode half of
-blackhole_tpu.grad.inverse: the unconstrained parameterisation
-(pack_params, unpack_params: log for positive quantities, a scaled tanh
-for spin, so an optimiser step never leaves the physical manifold) and
-fit_forward, each of whose steps is ONE pass of the multi-tangent kernel
-K2 (grad.fast_grad.render_value_and_grad).  The reverse-mode fit
-(image_loss, make_train_step, fit) is not ported yet.
+PyTorch counterpart of blackhole_tpu.grad.inverse: the unconstrained
+parameterisation (pack_params, unpack_params: log for positive
+quantities, a scaled tanh for spin, so an optimiser step never leaves
+the physical manifold); fit_forward, each of whose steps is ONE pass of
+the multi-tangent kernel K2 (grad.fast_grad.render_value_and_grad); and
+fit, by reverse mode through the checkpointed trace (image_loss,
+make_train_step).  Adam is torch.optim.Adam at optax.adam's defaults
+(betas 0.9 and 0.999, eps 1e-8), host code.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from blackhole_tpu_torch.geom.types import Camera, Scene
-from blackhole_tpu_torch.grad import fast_grad
+from blackhole_tpu_torch.grad import diff_trace, fast_grad
 from blackhole_tpu_torch.render import camera as cam
 from blackhole_tpu_torch.tangent_rules import jmax
 
@@ -126,4 +128,78 @@ def fit_forward(target, init_scene: Scene, init_camera: Camera, width: int,
             callback(i, {**frozen, **opt_params}, loss)
     scene, camera = unpack_params({**frozen, **opt_params}, init_scene,
                                   init_camera)
+    return scene, camera, losses
+
+
+def image_loss(params: dict, target, template_scene: Scene,
+               template_camera: Camera, width: int, height: int):
+    """0.5 * mean squared pixel error of the differentiable render."""
+    scene, camera = unpack_params(params, template_scene, template_camera)
+    img = diff_trace.render_image_diff(scene, camera, width, height)
+    return 0.5 * torch.mean((img - target) ** 2)
+
+
+def make_train_step(width: int, height: int):
+    """step(params, optimizer, target, template_scene, template_camera,
+    mask=None) -> (params, optimizer, loss): one optimiser step in
+    place.  params' tensors are the optimizer's parameters (leaves that
+    require grad); the optimizer holds its state and its learning rate
+    (param_groups), as optax's inject_hyperparams state does.  mask:
+    optional dict of 0/1 multipliers of the gradients, the freeze
+    mechanism of fit (a frozen parameter's Adam moments stay 0, so its
+    value stays bit for bit)."""
+
+    def step(params, optimizer, target, template_scene, template_camera,
+             mask=None):
+        names = list(params)
+        loss = image_loss(params, target, template_scene, template_camera,
+                          width, height)
+        grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                    allow_unused=True)
+        for k, g in zip(names, grads):
+            g = torch.zeros_like(params[k]) if g is None else g
+            params[k].grad = g * mask[k] if mask is not None else g
+        optimizer.step()
+        return params, optimizer, loss.detach()
+
+    return step
+
+
+def _adam(params: dict, learning_rate: float):
+    """torch.optim.Adam over params' tensors at optax.adam's defaults."""
+    return torch.optim.Adam(list(params.values()), lr=learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+@functools.lru_cache(maxsize=None)
+def _fit_step(width: int, height: int):
+    """(optimizer factory, train step) for fit at these image sizes."""
+    return _adam, make_train_step(width, height)
+
+
+def fit(target, init_scene: Scene, init_camera: Camera, width: int,
+        height: int, steps: int = 100, learning_rate: float = 3e-2,
+        optimize: tuple = ("log_mass", "spin_raw"), callback=None):
+    """Fit the parameters named in `optimize` to `target` (H, W, 3) by
+    Adam on image_loss, reverse mode through the checkpointed trace
+    (grad.diff_trace); every other parameter gets a zero gradient mask
+    and stays as it was.  Returns (scene, camera, losses), losses[i]
+    being the loss before step i.  For few-parameter fits on a GPU,
+    fit_forward (one K2 pass per step) is the faster engine."""
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in pack_params(init_scene, init_camera).items()}
+    mask = {k: float(k in optimize) for k in params}
+    adam, step_fn = _fit_step(width, height)
+    optimizer = adam(params, learning_rate)
+    target = torch.as_tensor(target, dtype=params["log_mass"].dtype,
+                             device=params["log_mass"].device)
+    losses = []
+    for i in range(steps):
+        params, optimizer, loss = step_fn(params, optimizer, target,
+                                          init_scene, init_camera, mask)
+        losses.append(float(loss))
+        if callback is not None:
+            callback(i, params, loss)
+    scene, camera = unpack_params({k: v.detach() for k, v in params.items()},
+                                  init_scene, init_camera)
     return scene, camera, losses

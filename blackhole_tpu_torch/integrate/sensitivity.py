@@ -1,18 +1,21 @@
-"""Tangent (forward-sensitivity) guard for chaotic geodesic integration.
+"""Tangent and cotangent guards for chaotic geodesic integration.
 
-PyTorch counterpart of blackhole_tpu.integrate.sensitivity (forward
-mode).  Near the photon shell forward-mode sensitivities grow like
-e^(lambda * steps) and overflow float32 within the step budget.  The
-primal stays exact; only the per-ray tangent vector is guarded, once
-per integration step:
+PyTorch counterpart of blackhole_tpu.integrate.sensitivity.  Near the
+photon shell forward-mode sensitivities grow like e^(lambda * steps)
+and overflow float32 within the step budget, and so do reverse-mode
+adjoints.  The primal stays exact; only the per-ray tangent (or
+cotangent) vector is guarded, once per integration step:
 
 * magnitude above TANGENT_LIMIT -> rescaled to TANGENT_LIMIT
   (direction kept; the identity below the limit),
 * non-finite                    -> zeroed for good.
 
 `tangent_guard` is an identity on the primal whose tangent under
-torch.func.jvp is guarded.  The reverse-mode counterpart
-(cotangent_guard) belongs to the reverse-mode slice and is not ported.
+torch.func.jvp is guarded; like the JAX package's custom_jvp it has no
+reverse-mode rule (jax.grad through it raises too).  `cotangent_guard`
+is its reverse-mode twin: an identity whose cotangent is guarded in
+.backward(), placed before every step of the reverse-mode trace
+(grad.diff_trace).  Neither changes a value that is not differentiated.
 """
 
 from __future__ import annotations
@@ -78,8 +81,8 @@ class _TangentGuard(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "tangent_guard is forward-mode only; the reverse-mode guard "
-            "is not ported yet"
+            "tangent_guard is forward-mode only, as in the JAX package; "
+            "reverse mode guards with cotangent_guard (grad.diff_trace)"
         )
 
 
@@ -87,3 +90,28 @@ def tangent_guard(ray_ndim: int, tree):
     """Identity on a tuple of per-ray tensors; under torch.func.jvp its
     tangent is guarded (_guard_tree).  Returns a tuple."""
     return tuple(_TangentGuard.apply(ray_ndim, *tree))
+
+
+class _CotangentGuard(torch.autograd.Function):
+    """Identity on the primal tuple; guards its cotangent."""
+
+    @staticmethod
+    def forward(ray_ndim, *tree):
+        return tuple(t.view_as(t) for t in tree)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.ray_ndim = inputs[0]
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + _guard_tree(grads, ctx.ray_ndim)
+
+
+def cotangent_guard(ray_ndim: int, tree):
+    """Identity on a tuple of per-ray tensors; the cotangent flowing
+    back through it is guarded per ray (_guard_tree: rescaled to
+    TANGENT_LIMIT, non-finite values zeroed).  Reverse mode only.
+    Returns a tuple."""
+    return tuple(_CotangentGuard.apply(ray_ndim, *tree))

@@ -1,9 +1,9 @@
 """Derived black hole quantities used by the render and gradient paths.
 
 PyTorch counterpart of the matching functions of
-blackhole_tpu.metrics.derived.  The capture margin's max and abs follow
-jax.jvp's tangent rules (tangent_rules), so torch.func.jvp of it is the
-JAX package's tangent.
+blackhole_tpu.metrics.derived.  Their max, min, clip and abs follow
+JAX's derivative rules (tangent_rules), so torch.func.jvp and
+.backward() of them are the JAX package's.
 """
 
 from __future__ import annotations
@@ -11,33 +11,31 @@ from __future__ import annotations
 import torch
 
 from blackhole_tpu_torch.constants import EPSILON
-from blackhole_tpu_torch.tangent_rules import jabs, jmax
+from blackhole_tpu_torch.tangent_rules import jabs, jclip, jmax
 
 
 def time_dilation(r, M):
     """Schwarzschild time dilation 1/sqrt(1 - rs/r), clamped at the
     horizon."""
     rs = 2.0 * M
-    f = torch.clamp(
-        1.0 - rs / torch.maximum(r, rs + EPSILON), min=EPSILON
-    )
+    f = jmax(1.0 - rs / jmax(r, rs + EPSILON), EPSILON)
     return 1.0 / torch.sqrt(f)
 
 
 def kerr_circular_omega(r, M, a, sign=1.0):
     """Coordinate angular velocity of a circular equatorial geodesic:
     Omega = ± M^{1/2} / (r^{3/2} ± a M^{1/2}); sign=+1 prograde."""
-    sqM = torch.sqrt(torch.clamp(M, min=EPSILON))
-    r32 = torch.clamp(r, min=EPSILON) ** 1.5
+    sqM = torch.sqrt(jmax(M, EPSILON))
+    r32 = jmax(r, EPSILON) ** 1.5
     return sign * sqM / (r32 + sign * a * sqM)
 
 
 def static_time_dilation_kerr(r, M, a, charge=0.0):
     """Equatorial static-observer time dilation 1/sqrt(-g_tt), clamped
     at the ergosphere."""
-    r = torch.clamp(r, min=EPSILON)
+    r = jmax(r, EPSILON)
     f = 1.0 - (2.0 * M * r - charge * charge) / (r * r)
-    return 1.0 / torch.sqrt(torch.clamp(f, min=EPSILON))
+    return 1.0 / torch.sqrt(jmax(f, EPSILON))
 
 
 def kerr_photon_orbit_radius(M, a_over_M=0.0, sign=1.0):
@@ -47,14 +45,14 @@ def kerr_photon_orbit_radius(M, a_over_M=0.0, sign=1.0):
     return 2.0 * M * (
         1.0
         + torch.cos(
-            2.0 / 3.0 * torch.arccos(torch.clamp(-sign * a_over_M, -1.0, 1.0))
+            2.0 / 3.0 * torch.arccos(jclip(-sign * a_over_M, -1.0, 1.0))
         )
     )
 
 
 def keplerian_orbital_velocity(r, M):
     """Circular-orbit speed v = sqrt(M/r)."""
-    return torch.sqrt(M / torch.clamp(r, min=EPSILON))
+    return torch.sqrt(M / jmax(r, EPSILON))
 
 
 def event_horizon(M, a_over_M, charge=0.0):

@@ -1,6 +1,7 @@
-"""Kerr-Newman metric in Boyer-Lindquist coordinates (covariant part).
+"""Kerr-Newman metric in Boyer-Lindquist coordinates.
 
-PyTorch counterpart of blackhole_tpu.metrics.kerr.metric/sigma_delta.
+PyTorch counterpart of blackhole_tpu.metrics.kerr's metric,
+inverse_metric and sigma_delta.
 Component convention (t, r, theta, phi); nonzero entries g_tt, g_tphi,
 g_rr, g_thth, g_phph.  tm = 2 M r - Q^2 replaces every 2 M r mass term.
 """
@@ -11,9 +12,22 @@ from typing import NamedTuple
 
 import torch
 
+from blackhole_tpu_torch.constants import EPSILON
+from blackhole_tpu_torch.tangent_rules import jmax
+
 
 class Metric(NamedTuple):
     """Nonzero Kerr metric components (covariant)."""
+
+    g_tt: torch.Tensor
+    g_tphi: torch.Tensor
+    g_rr: torch.Tensor
+    g_thth: torch.Tensor
+    g_phph: torch.Tensor
+
+
+class InverseMetric(NamedTuple):
+    """Nonzero Kerr metric components (contravariant)."""
 
     g_tt: torch.Tensor
     g_tphi: torch.Tensor
@@ -42,3 +56,23 @@ def metric(r, theta, M, a, Q=0.0):
     g_thth = sigma
     g_phph = (r * r + a * a + tm * a * a * st2 / sigma) * st2
     return Metric(g_tt, g_tphi, g_rr, g_thth, g_phph)
+
+
+def inverse_metric(r, theta, M, a, Q=0.0):
+    """Contravariant Kerr-Newman metric components:
+    g^tt = -A / (Sigma Delta), A = (r^2+a^2)^2 - Delta a^2 sin^2;
+    g^tphi = -tm a / (Sigma Delta); g^rr = Delta / Sigma;
+    g^thth = 1 / Sigma; g^phph = (Delta - a^2 sin^2) / (Sigma Delta sin^2)."""
+    st = torch.sin(theta)
+    st2 = st * st
+    sigma, delta = sigma_delta(r, theta, M, a, Q)
+    r2a2 = r * r + a * a
+    A = r2a2 * r2a2 - delta * a * a * st2
+    inv_sd = 1.0 / (sigma * delta)
+    g_tt = -A * inv_sd
+    g_tphi = -(2.0 * M * r - Q * Q) * a * inv_sd
+    g_rr = delta / sigma
+    g_thth = 1.0 / sigma
+    st2_safe = jmax(st2, EPSILON)
+    g_phph = (delta - a * a * st2) * inv_sd / st2_safe
+    return InverseMetric(g_tt, g_tphi, g_rr, g_thth, g_phph)

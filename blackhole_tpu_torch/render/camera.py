@@ -74,8 +74,13 @@ def generate_rays_for_rows(camera: Camera, width: int, height: int, rows,
     py = torch.as_tensor(rows, device=device).to(torch.float32)
     offset_x = torch.as_tensor(offset_x, dtype=torch.float32, device=device)
     offset_y = torch.as_tensor(offset_y, dtype=torch.float32, device=device)
-    ndc_x = (2.0 * (px[None, :] + offset_x) / width - 1.0) * plane_w
-    ndc_y = (1.0 - 2.0 * (py[:, None] + offset_y) / height) * plane_h
+    # The pixel grid is float32 and the plane's extent takes the
+    # camera's dtype, as JAX promotes (torch would keep a 0-d factor's
+    # product in float32).
+    ndc_x = (2.0 * (px[None, :] + offset_x) / width - 1.0).to(
+        plane_w.dtype) * plane_w
+    ndc_y = (1.0 - 2.0 * (py[:, None] + offset_y) / height).to(
+        plane_h.dtype) * plane_h
 
     d = (
         forward[None, None, :]

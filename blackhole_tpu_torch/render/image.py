@@ -1,18 +1,22 @@
-"""Image rendering: supersampling, depth-sorted tracing, accumulation.
+"""Image rendering: supersampling, depth-sorted or chunked tracing,
+temporal accumulation.
 
-PyTorch counterpart of blackhole_tpu.render.image (the forward path's
-subset).  Rays live on the camera's device: on a GPU they go through
-the CUDA geodesic kernel, on the CPU through its plain version.
+PyTorch counterpart of blackhole_tpu.render.image.  Rays live on the
+camera's device.  Two engines trace them: the geodesic kernel (the CUDA
+kernel on a GPU, its plain version on the CPU) and the XLA engine
+(render.trace.trace_rays, plain torch on either device).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
-from blackhole_tpu_torch.geom.types import Camera, Integrator, Scene
+from blackhole_tpu_torch.geom.types import Camera, Hit, Integrator, Scene
 from blackhole_tpu_torch.render import camera as cam
-from blackhole_tpu_torch.render import trace_kernel
+from blackhole_tpu_torch.render import trace, trace_kernel
 
 
 def predicted_depth_order(scene: Scene, camera: Camera, width: int,
@@ -45,51 +49,99 @@ def predicted_depth_order(scene: Scene, camera: Camera, width: int,
     return torch.argsort(-pred.reshape(-1), stable=True)
 
 
+def predicted_depth_order_rays(origins, directions, scene: Scene,
+                               stride: int = 64):
+    """Depth-sort permutation for an arbitrary flat ray batch: every
+    stride-th ray traced through the geodesic kernel, its step count
+    widened by the max of its two neighbours, nearest-assigned back and
+    stable-argsorted deepest first.  Regrouping rays leaves every ray's
+    result unchanged."""
+    o = origins.reshape(-1, 3)
+    d = directions.reshape(-1, 3)
+    n = o.shape[0]
+    hit = trace_kernel.trace_rays_kernel(o[::stride], d[::stride], scene)
+    s = hit.steps.to(torch.float32)
+    s = torch.maximum(s, torch.maximum(torch.roll(s, 1), torch.roll(s, -1)))
+    pred = s.repeat_interleave(stride)[:n]
+    return torch.argsort(-pred, stable=True)
+
+
+_ENGINES = ("auto", "xla")
+
+
+def _resolve_engine(engine: str, scene: Scene) -> str:
+    """"kernel" or "xla": "auto" takes the geodesic kernel for the RK4
+    and RKF45 integrators and the XLA engine for the others, as the
+    JAX package's auto does on a TPU."""
+    if engine not in _ENGINES:
+        raise ValueError(f"engine must be one of {_ENGINES}, got {engine!r}")
+    if engine == "auto" and scene.config.integrator in (Integrator.RK4,
+                                                        Integrator.RKF45):
+        return "kernel"
+    return "xla"
+
+
 def trace_rays_fast(origins, directions, scene: Scene, engine: str = "auto",
                     order=None):
-    """Forward ray tracing through the geodesic kernel.
+    """Forward ray tracing through the chosen engine.
 
-    engine "auto" takes the kernel path for the RK4 and RKF45
-    integrators: the CUDA kernel for CUDA tensors, its plain
-    version for CPU tensors.  Other integrators need the XLA engine's
-    counterpart, which is not ported yet, and raise.  A kernel that
-    fails to build or launch raises; nothing falls back.
+    engine "auto": the geodesic kernel for RK4 and RKF45 (the CUDA
+    kernel for CUDA tensors, its plain version for CPU tensors), the
+    XLA engine (trace.trace_rays, plain torch on the rays' device) for
+    LEAPFROG and YOSHIDA; "xla": the XLA engine for every integrator.
+    A kernel that fails to build or launch raises; nothing falls back.
 
-    order: optional depth-sort permutation (predicted_depth_order)."""
-    if engine != "auto":
-        raise NotImplementedError(f"engine {engine!r} is not ported yet")
-    if scene.config.integrator not in (Integrator.RK4, Integrator.RKF45):
-        raise NotImplementedError(
-            f"integrator {scene.config.integrator!r} needs the XLA engine, "
-            "not ported yet"
-        )
+    order: optional depth-sort permutation (predicted_depth_order) for
+    the kernel; the XLA engine ignores it."""
+    if _resolve_engine(engine, scene) == "xla":
+        return trace.trace_rays(origins, directions, scene)
     return trace_kernel.trace_rays_kernel(origins, directions, scene,
                                           order=order)
 
 
 def render_image(scene: Scene, camera: Camera, width: int = 256,
                  height: int = 256, spp: int = 1, jitter: str = "halton",
-                 engine: str = "auto", depth_sort: bool | None = None):
+                 chunks: int = 1, engine: str = "auto",
+                 depth_sort: bool | None = None):
     """Render an RGB image (H, W, 3) in [0, 1] on the camera's device.
 
-    spp samples per pixel with sub-pixel jitter.  depth_sort: feed the
-    kernel a prepass depth permutation (predicted_depth_order); None
-    turns it on for CUDA renders of at least 256x256.  One prepass
+    spp samples per pixel with sub-pixel jitter.  chunks: with engine
+    "xla", trace the pixels in this many sequential chunks, each
+    stopping when its own rays are done.  depth_sort: feed the kernel a
+    prepass depth permutation (predicted_depth_order); None turns it on
+    for kernel renders on a GPU of at least 256x256.  One prepass
     serves every sample."""
     n_pix = width * height
+    if n_pix % chunks:
+        raise ValueError("chunks must divide width * height")
     device = camera.position.device
+    kernel = _resolve_engine(engine, scene) == "kernel"
     if depth_sort is None:
-        depth_sort = device.type == "cuda" and n_pix >= 65536
+        depth_sort = kernel and device.type == "cuda" and n_pix >= 65536
     order = (predicted_depth_order(scene, camera, width, height)
-             if depth_sort else None)
+             if depth_sort and kernel else None)
+
+    def trace_flat(origins, dirs):
+        if chunks == 1 or engine != "xla":
+            return trace_rays_fast(origins, dirs, scene, engine, order=order)
+        hits = [trace.trace_rays(o, d, scene) for o, d in
+                zip(origins.chunk(chunks), dirs.chunk(chunks))]
+        return Hit(*(torch.cat([getattr(h, f.name) for h in hits])
+                     for f in dataclasses.fields(Hit)))
+
     acc = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
     for s in range(spp):
         ox, oy = cam.jitter_offsets(s, spp, method=jitter)
         origins, dirs = cam.generate_rays(camera, width, height, ox, oy)
-        hit = trace_rays_fast(origins.reshape(-1, 3), dirs.reshape(-1, 3),
-                              scene, engine, order=order)
+        hit = trace_flat(origins.reshape(-1, 3), dirs.reshape(-1, 3))
         acc = acc + hit.color.reshape(height, width, 3)
     return acc / spp
+
+
+def render_hits(scene: Scene, camera: Camera, width: int, height: int):
+    """The full Hit record grid (H, W) of a render, by the XLA engine."""
+    origins, dirs = cam.generate_rays(camera, width, height)
+    return trace.trace_rays(origins, dirs, scene)
 
 
 def temporal_accumulate(history, frame, frame_index, blend_factor=0.1,
@@ -104,3 +156,23 @@ def temporal_accumulate(history, frame, frame_index, blend_factor=0.1,
     alpha = torch.where(idx >= max_frames, blend_factor, alpha)
     out = history * (1.0 - alpha) + frame * alpha
     return out, torch.clamp(idx + 1, max=max_frames)
+
+
+def render_accumulated(scene: Scene, camera: Camera, width, height,
+                       n_frames=8, blend_factor=0.1, max_frames=32):
+    """Progressive accumulation of n_frames frames by the XLA engine,
+    frame s at the s-th Halton jitter offset, blended by
+    temporal_accumulate."""
+    device = camera.position.device
+    history = torch.zeros((height, width, 3), dtype=torch.float32,
+                          device=device)
+    idx = torch.zeros((), dtype=torch.int32, device=device)
+    for s in range(n_frames):
+        ox, oy = cam.jitter_offsets(s, n_frames)
+        origins, dirs = cam.generate_rays(camera, width, height, ox, oy)
+        hit = trace.trace_rays(origins.reshape(-1, 3), dirs.reshape(-1, 3),
+                               scene)
+        frame = hit.color.reshape(height, width, 3)
+        history, idx = temporal_accumulate(history, frame, idx, blend_factor,
+                                           max_frames)
+    return history

@@ -1,7 +1,9 @@
 """Disk temperature, blackbody colour and relativistic shading.
 
 PyTorch counterpart of blackhole_tpu.render.shading (the forward path's
-subset).  Branch-free over rays, batched over leading dims.
+subset).  Branch-free over rays, batched over leading dims.  Its max,
+min, clip and abs follow JAX's derivative rules (tangent_rules), so
+forward and reverse mode through it are the JAX package's.
 """
 
 from __future__ import annotations
@@ -20,13 +22,14 @@ from blackhole_tpu_torch.constants import (
 )
 from blackhole_tpu_torch.geom import coords
 from blackhole_tpu_torch.metrics import derived
+from blackhole_tpu_torch.tangent_rules import jabs, jclip, jmax, jmin
 
 log = logging.getLogger(__name__)
 
 
 def temperature_to_rgb(temperature):
     """Piecewise blackbody temperature -> RGB; (...,) K -> (..., 3)."""
-    t = (torch.clamp(temperature, MIN_TEMP_K, MAX_TEMP_K) - MIN_TEMP_K) / (
+    t = (jclip(temperature, MIN_TEMP_K, MAX_TEMP_K) - MIN_TEMP_K) / (
         MAX_TEMP_K - MIN_TEMP_K
     )
     r = torch.where(t < 0.5, t * 2.0, 1.0)
@@ -40,13 +43,12 @@ def temperature_to_rgb(temperature):
 
 def disk_temperature(r_hit, disk_inner, disk_outer, temp_scale):
     """Thin-disk profile T = scale (2000 + 18000 (1 - r_norm)^0.75) K."""
-    rn = torch.clamp(
-        (r_hit - disk_inner) / torch.clamp(disk_outer - disk_inner,
-                                           min=EPSILON),
+    rn = jclip(
+        (r_hit - disk_inner) / jmax(disk_outer - disk_inner, EPSILON),
         0.0,
         1.0,
     )
-    temp_factor = torch.clamp(1.0 - rn, min=1e-9) ** 0.75
+    temp_factor = jmax(1.0 - rn, 1e-9) ** 0.75
     return temp_scale * (DISK_TEMP_BASE_K + DISK_TEMP_RANGE_K * temp_factor)
 
 
@@ -55,17 +57,17 @@ def doppler_factor_relativistic(hit_pos, photon_dir, M):
     sqrt((1 - beta cos a)/(1 + beta cos a)), beta = sqrt(M/r)."""
     x, y = hit_pos[..., 0], hit_pos[..., 1]
     r = torch.sqrt(x * x + y * y)
-    beta = torch.clamp(
+    beta = jclip(
         derived.keplerian_orbital_velocity(r, M), 0.0, 1.0 - 1e-6
     )
     tangent = torch.stack(
         [-y, x, torch.zeros_like(x)], dim=-1
-    ) / torch.clamp(r, min=EPSILON)[..., None]
+    ) / jmax(r, EPSILON)[..., None]
     d = coords.normalize(photon_dir)
     cos_angle = torch.sum(d * tangent, dim=-1)
     return torch.sqrt(
-        torch.clamp(1.0 - beta * cos_angle, min=EPSILON)
-        / torch.clamp(1.0 + beta * cos_angle, min=EPSILON)
+        jmax(1.0 - beta * cos_angle, EPSILON)
+        / jmax(1.0 + beta * cos_angle, EPSILON)
     )
 
 
@@ -74,23 +76,23 @@ def kerr_g_factor(r_bl, L, M, a, charge=0.0, sign=1.0):
     circular equatorial geodesic orbit at BL radius r_bl, received at
     infinity: sqrt(-(g_tt + 2 Omega g_tphi + Omega^2 g_phph)) /
     (1 - Omega L), clamped to [1e-3, 1e3]."""
-    r = torch.clamp(r_bl, min=EPSILON)
+    r = jmax(r_bl, EPSILON)
     omega = derived.kerr_circular_omega(r, M, a, sign)
     tm = 2.0 * M * r - charge * charge
     g_tt = -(1.0 - tm / (r * r))
     g_tphi = -tm * a / (r * r)
     g_phph = r * r + a * a + tm * a * a / (r * r)
     u2 = -(g_tt + 2.0 * omega * g_tphi + omega * omega * g_phph)
-    num = torch.sqrt(torch.clamp(u2, min=EPSILON))
+    num = torch.sqrt(jmax(u2, EPSILON))
     den = 1.0 - omega * L
     g = num / torch.where(torch.abs(den) < EPSILON, EPSILON, den)
-    return torch.clamp(g, 1e-3, 1e3)
+    return jclip(g, 1e-3, 1e3)
 
 
 def doppler_factor_compat(hit_pos, photon_dir, M):
     """Simplified factor 1 + 0.5 v.t_hat of the reference's CPU path."""
     x, y = hit_pos[..., 0], hit_pos[..., 1]
-    r = torch.clamp(torch.sqrt(x * x + y * y), min=EPSILON)
+    r = jmax(torch.sqrt(x * x + y * y), EPSILON)
     v = derived.keplerian_orbital_velocity(r, M)
     tangent = torch.stack([-y / r, x / r, torch.zeros_like(x)], dim=-1)
     d = coords.normalize(photon_dir)
@@ -103,22 +105,22 @@ def apply_relativistic_effects(color, doppler, grav_redshift,
     """Doppler shift + gravitational redshift + doppler^4 beaming on the
     disk colour (..., 3), clamped to [0, 1]."""
     r, g, b = color[..., 0], color[..., 1], color[..., 2]
-    shift = doppler / torch.clamp(grav_redshift, min=EPSILON)
+    shift = doppler / jmax(grav_redshift, EPSILON)
     if enable_doppler or enable_redshift:
         if not enable_doppler:
-            shift = 1.0 / torch.clamp(grav_redshift, min=EPSILON)
+            shift = 1.0 / jmax(grav_redshift, EPSILON)
         if not enable_redshift:
             shift = doppler
         redder = shift < 1.0
-        r = torch.where(redder, torch.clamp(r * (2.0 - shift), max=1.0),
+        r = torch.where(redder, jmin(r * (2.0 - shift), 1.0),
                         r * (2.0 - shift))
-        b = torch.where(redder, b * shift, torch.clamp(b * shift, max=1.0))
+        b = torch.where(redder, b * shift, jmin(b * shift, 1.0))
     if enable_beaming:
         beaming = doppler**4
         r = r * beaming
         g = g * beaming
         b = b * beaming
-    return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 1.0)
+    return jclip(torch.stack([r, g, b], dim=-1), 0.0, 1.0)
 
 
 def sky_color(direction):
@@ -137,7 +139,7 @@ def sample_environment(direction, env_map):
     h, w = env_map.shape[-3], env_map.shape[-2]
     d = coords.normalize(direction)
     phi = torch.atan2(d[..., 1], d[..., 0])
-    theta = torch.arccos(torch.clamp(d[..., 2], -1.0, 1.0))
+    theta = torch.arccos(jclip(d[..., 2], -1.0, 1.0))
     u = (phi / (2.0 * math.pi) + 0.5) * w - 0.5
     v = (theta / math.pi) * h - 0.5
     u0 = torch.floor(u)
@@ -196,7 +198,7 @@ def shade_disk_hit(hit_pos, photon_dir, blackhole, disk, config, L=None):
         M = blackhole.mass
         a = blackhole.spin * M
         # Equatorial BL radius from the cylindrical one (w = sqrt(r^2+a^2)).
-        r_bl = torch.sqrt(torch.clamp(r_cyl * r_cyl - a * a, min=EPSILON))
+        r_bl = torch.sqrt(jmax(r_cyl * r_cyl - a * a, EPSILON))
         g = kerr_g_factor(r_bl, L, M, a, blackhole.charge)
         grav = derived.static_time_dilation_kerr(r_bl, M, a,
                                                  blackhole.charge)

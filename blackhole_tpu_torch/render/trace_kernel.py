@@ -84,34 +84,6 @@ MAX_TANGENTS_PER_PASS = 2
 _ACTIVE = float(trace.ACTIVE)
 
 
-class _SlaveTrig(torch.autograd.Function):
-    """Identity on (st, ct, sp, cp); under torch.func.jvp their tangents
-    are overwritten with cos th dth, -sin th dth, cos ph dph, -sin ph dph
-    (the JAX package's _slave_trig)."""
-
-    @staticmethod
-    def forward(st, ct, sp, cp, th, ph):
-        # Views, not the inputs themselves: autograd refuses to save an
-        # input returned as-is.
-        return st.view_as(st), ct.view_as(ct), sp.view_as(sp), cp.view_as(cp)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_forward(*inputs[:4])
-
-    @staticmethod
-    def jvp(ctx, _dst, _dct, _dsp, _dcp, dth, dph):
-        st, ct, sp, cp = ctx.saved_tensors
-        dth = torch.zeros_like(st) if dth is None else dth
-        dph = torch.zeros_like(sp) if dph is None else dph
-        return ct * dth, -st * dth, cp * dph, -sp * dph
-
-
-def slave_trig(st, ct, sp, cp, th, ph):
-    """Trig-tangent slaving: identity on the primal (see _SlaveTrig)."""
-    return _SlaveTrig.apply(st, ct, sp, cp, th, ph)
-
-
 def _rhs(r, pr, pth, st, ct, sp, cp, L, M, a, Q):
     """Closed-form Kerr-Newman geodesic RHS on the trig-augmented state
     (E = 1), transcendental-free.  Returns
@@ -208,7 +180,7 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False,
     package's pallas_kernel._step_update.  Its max, min, clip and abs
     follow jax.jvp's tangent rules, so torch.func.jvp of it is the
     tangent recurrence of K2; slave=True slaves the trig tangents
-    (slave_trig) after the renormalisation, as the JAX package's
+    (trace.slave_trig) after the renormalisation, as the JAX package's
     differentiated kernels do.
 
     state: the 21 S_* slots, + the 7 tracking slots under track (the
@@ -314,8 +286,8 @@ def step_update(state, scal, disk_enabled: bool, adaptive: bool = False,
     sph_n = sph_n * n_ph
     cph_n = cph_n * n_ph
     if slave:
-        sth_n, cth_n, sph_n, cph_n = slave_trig(sth_n, cth_n, sph_n, cph_n,
-                                                th_n, ph_n)
+        sth_n, cth_n, sph_n, cph_n = trace.slave_trig(
+            sth_n, cth_n, sph_n, cph_n, th_n, ph_n)
 
     cx, cy, cz = _cart(r, sth, cth, sph, cph, a)
     cx_n, cy_n, cz_n = _cart(r_n, sth_n, cth_n, sph_n, cph_n, a)
@@ -564,7 +536,7 @@ def trace_planes_fwdgrad(scal, dscals, inp, dinps, disk_enabled: bool,
         if torch.is_grad_enabled() and t.requires_grad:
             raise NotImplementedError(
                 "the geodesic kernels are forward-mode only; reverse mode "
-                "is not ported yet"
+                "runs the XLA engine (grad.diff_trace)"
             )
     if inp.device.type == "cpu":
         return trace_planes_fwdgrad_plain(scal, dscals, inp, dinps,
@@ -618,8 +590,8 @@ class _Launch(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "reverse mode through the geodesic kernel is not ported yet; "
-            "use torch.func.jvp or grad.fast_grad"
+            "the geodesic kernel has no reverse mode: use grad.diff_trace "
+            "(the XLA engine), or torch.func.jvp / grad.fast_grad"
         )
 
 
@@ -660,8 +632,8 @@ def _check_planes(scal, inp, disk_enabled, track):
         raise ValueError("crossing-opacity tracking needs the disk on")
     if torch.is_grad_enabled() and (scal.requires_grad or inp.requires_grad):
         raise NotImplementedError(
-            "the geodesic kernels are forward-mode only; reverse mode is "
-            "not ported yet"
+            "the geodesic kernels are forward-mode only; reverse mode runs "
+            "the XLA engine (grad.diff_trace)"
         )
     if inp.dim() != 2 or inp.shape[0] != N_INP_PLANES:
         raise ValueError(f"inp must be ({N_INP_PLANES}, n), got "
@@ -713,8 +685,8 @@ class _Planes(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         raise NotImplementedError(
-            "reverse mode through the geodesic kernel is not ported yet; "
-            "use torch.func.jvp or grad.fast_grad"
+            "the geodesic kernel has no reverse mode: use grad.diff_trace "
+            "(the XLA engine), or torch.func.jvp / grad.fast_grad"
         )
 
 

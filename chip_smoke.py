@@ -13,7 +13,8 @@ Phases (each raises on failure; nothing is caught):
      < 2e-4 over agreeing non-MAX_STEPS rays; RKF45: at most n/500 codes
      differ, colour mean < 2e-3 and p99 < 3e-2);
   4. K2 (trace_planes_fwdgrad) against its plain version on the same
-     cases with the tangents d/d(mass, spin) (with the disk on, the first
+     cases (RK4 over FWDGRAD_PARITY_STEPS' 125 steps) with the tangents
+     d/d(mass, spin) (with the disk on, the first
      15 planes of the plain tracking pass), under K2's contract
      (fwdgrad_stats): the primal under K1's contracts and no result
      code differing from K1's; the colour tangents (clipped at
@@ -65,7 +66,8 @@ Phases (each raises on failure; nothing is caught):
      9 reuses;
   3-4 (track). The tracking variants (shadow_softness 0.3, disk on: the
      crossing-opacity planes) against their plain versions at the 64x64
-     parity cases, spin 0 and 0.9, RK4 and RKF45, 250 steps, one plain
+     parity cases, spin 0 and 0.9, RK4 (125 steps) and RKF45 (250), one
+     plain
      tracking pass per case (phase 4's): RK4: K1-track under K1's exact
      contract plus the 7 tracking planes (track_stats), K2-track with 2
      tangents and with 1 under K2's, its primal codes equal to
@@ -96,7 +98,37 @@ Phases (each raises on failure; nothing is caught):
      and block shares of phases 7-9's 1024x1024 launches in raster and
      depth-sorted order; one `regime:` line per K1 launch of the main and
      soft paths (print_regimes): its time, the static issue ceiling of
-     its step loop and the tail floor of its slowest warp.
+     its step loop and the tail floor of its slowest warp;
+  13. the XLA engine (render.trace.trace_rays, eager torch, one host
+     synchronisation per step) on the card: trace_rays_fast(engine="xla")
+     of the bench scene at 1024x1024 RK4 and 512x512 RKF45 against K1 on
+     the same rays under the distribution contract, the result codes
+     that differ and both engines' times (median of 3 after a warm-up,
+     min and max); LEAPFROG and YOSHIDA at the 64x64 parity case against
+     the same call on the CPU under the RK4 contract;
+  14. reverse mode against finite differences, float64 on the card:
+     d(mean image)/d(mass) and d/d(spin) of grad.diff_trace.
+     render_image_diff at 8x8, 150 steps, against central differences
+     (eps 1e-6) within rtol 2e-3 (the JAX package's pin);
+  15. the reverse half of the main path (bench.py's BENCH_GRAD=bucketed):
+     grad.bucketed.grad_over_chunks over {mass, spin} of the bench loss
+     at 1024x1024 RK4 in 16 chunks, its sizing pass one K1 launch
+     (counted), timed by host clock: rays/s, the chunks' buckets, peak
+     device memory, a finite gradient (gate), printed beside phase 8's
+     forward-mode one; per-ray gradients over every SAMPLE_STRIDE-th ray
+     (sample_grads: diff_trace with per-ray mass and spin leaves) on the
+     card against the CPU's (gate: sample_stats, K2's per-ray contract
+     on clipped d colour/d param over the rays whose code and step count
+     agree, and their loss gradient within SAMPLE_GRAD_RTOL), which the
+     CPU's with a planted fault (the trig slaving's transpose dropped)
+     must fail;
+  16. grad.inverse.fit: the JAX package's test case (16x16, 150 steps,
+     float64, 25 Adam steps from mass 1.15 at rate 2e-2) halves the loss
+     and keeps the frozen spin bit for bit, on the CPU; 3 steps at
+     256x256 (float32) on the card, ms per step.
+The CPU's shares of phases 15 and 16 (cpu_references) run in one
+spawned worker process from the end of phase 2 on, beside the card's
+phases, and the worker is stopped before the script returns.
 Every phase prints its start time.  The last three lines are the card,
 one JSON object about the kernels and one JSON object with "ok" and the
 device.  Exits non-zero without a result when no GPU is present or the
@@ -232,6 +264,14 @@ ONE_STEP_TOL = 1e-4
 ONE_STEP_CHORD_TOL = 1e-2
 CONTROLLER_STATES = {"clamped": (5.0, 3.0, 1e-6),
                      "rejected": (8.0, 6.0, 1e-4)}
+# Phases 4 and 3-4 (track) hold K2 and the tracking kernels to their
+# plain versions at the RK4 parity cases over this many steps (phase 3
+# holds K1, and the RKF45 cases hold K2, over the parity case's 250):
+# the plain K2 costs ~120 ms a step on the card, and this cut keeps the
+# script inside its time with the eager reverse phases (PERF.md).  At
+# 125 steps the RKF45 cases break their contract's calibration (the
+# controller's noise on rays in mid-flight), so they keep 250.
+FWDGRAD_PARITY_STEPS = {"rk4": 125, "rkf45": 250}
 # The soft boundary's AD/FD contract at 256x256, 800 steps (the JAX
 # package's pin, tests/test_tpu_compiled.py).
 FIDELITY_RTOL = 0.15
@@ -514,7 +554,9 @@ def check_fwdgrad_vs_plain(device, size=64, integrators=("rk4", "rkf45"),
     for integ in integrators:
         cases = []
         for spin, disk in ((0.0, True), (0.9, True), (0.9, False)):
-            scene, _, o, d = parity_scene(spin, disk, integ, device, size)
+            scene, _, o, d = parity_scene(
+                spin, disk, integ, device, size,
+                max_steps=FWDGRAD_PARITY_STEPS[integ])
             cases.append((spin, disk, o, d, scene, mass_spin_tangents(scene)))
         shared_planes, _ = plain_tracking([c[2:] for c in cases if c[1]])
         for spin, disk, o, d, scene, tangents in cases:
@@ -682,8 +724,9 @@ def check_track_vs_plain(device, size=64, integrators=("rk4", "rkf45"),
     for integ in integrators:
         rkf45 = integ == "rkf45"
         for spin in (0.0, 0.9):
-            scene, _, o, d = parity_scene(spin, True, integ, device, size,
-                                          softness=0.3)
+            scene, _, o, d = parity_scene(
+                spin, True, integ, device, size,
+                max_steps=FWDGRAD_PARITY_STEPS[integ], softness=0.3)
             args = tk.planes_args(scene)
             check(args[3], "the soft scene does not track")
             tangents = mass_spin_tangents(scene)
@@ -1405,6 +1448,355 @@ def check_fit(dev, size=256, steps=3, learning_rate=1e-2):
     return out
 
 
+def _ms_stats(times):
+    """"median (min-max) ms" of a list of seconds."""
+    ms = sorted(1e3 * t for t in times)
+    return f"{statistics.median(ms):.3f} ms ({ms[0]:.3f}-{ms[-1]:.3f})"
+
+
+def check_xla_engine(dev, camera, scene, scene45):
+    """Phase 13: the XLA engine (trace.trace_rays, eager torch) on the
+    card against K1 on the same rays: the bench scene at 1024x1024 RK4
+    and 512x512 RKF45 under the distribution contract (parity_stats),
+    each engine timed by host clock after a synchronise (median of 3
+    after a warm-up, min and max); then LEAPFROG and YOSHIDA, which only
+    the XLA engine runs, at the 64x64 parity case on the card against the
+    same call on the CPU under the RK4 contract."""
+    import torch
+
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import image
+
+    out = []
+    for name, sc, size in (("rk4", scene, 1024), ("rkf45", scene45, 512)):
+        o, d = cam.generate_rays(camera, size, size)
+        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        hit_x, t_x = _timed(lambda: image.trace_rays_fast(o, d, sc,
+                                                          engine="xla"))
+        hit_k, t_k = _timed(lambda: image.trace_rays_fast(o, d, sc))
+        stats = parity_stats(hit_x, hit_k, exact=False)
+        n = o.shape[0]
+        print(f"xla engine {name} {size}^2: {stats['result_mismatch']} of "
+              f"{n} result codes differ from K1's; xla "
+              f"{_ms_stats(t_x)}, K1 path {_ms_stats(t_k)}; "
+              f"{n / statistics.median(t_x):.1f} rays/s (xla)")
+        out.append({"integrator": name, "size": size, **stats,
+                    "xla_ms": 1e3 * statistics.median(t_x),
+                    "kernel_path_ms": 1e3 * statistics.median(t_k)})
+    for integ in ("leapfrog", "yoshida"):
+        hits = []
+        for device in (dev, torch.device("cpu")):
+            sc, _, o, d = parity_scene(0.9, True, integ, device)
+            hits.append(image.trace_rays_fast(o, d, sc).map(
+                lambda x: x.cpu()))
+        stats = parity_stats(hits[0], hits[1], exact=True)
+        check(bool((hits[0].steps == hits[1].steps).all()),
+              f"{integ}: step counts differ between the card and the CPU")
+        out.append({"integrator": integ, "size": 64, "vs": "cpu", **stats})
+    return out
+
+
+def small_diff_scene(device, dtype, spin=0.5, max_steps=150):
+    """The JAX package's gradient tests' scene and camera
+    (tests/test_grad.py: spin 0.5, disk 6-20, 150 steps of 0.1, camera
+    (0, -30, 8), fov 25 deg)."""
+    from blackhole_tpu_torch.geom.types import (
+        BlackHole, Camera, Disk, Scene, SimConfig,
+    )
+
+    kw = dict(device=device, dtype=dtype)
+    scene = Scene(BlackHole.create(1.0, spin, **kw),
+                  Disk.create(6.0, 20.0, **kw),
+                  SimConfig.create(time_step=0.1, max_ray_distance=80.0,
+                                   max_steps=max_steps, **kw),
+                  disk_enabled=True)
+    camera = Camera.create(position=(0.0, -30.0, 8.0),
+                           direction=(0.0, 30.0, -8.0), up=(0.0, 0.0, 1.0),
+                           fov_deg=25.0, **kw)
+    return scene, camera
+
+
+def check_reverse_fd(dev, size=8, eps=1e-6, rtol=2e-3):
+    """Phase 14: d(mean image)/d(mass) and d/d(spin) of render_image_diff
+    by one .backward(), float64 on the card, against central finite
+    differences (the JAX package's pin, tests/test_grad.py)."""
+    import torch
+
+    from blackhole_tpu_torch.grad import diff_trace
+
+    scene, camera = small_diff_scene(dev, torch.float64)
+
+    def loss(mass, spin):
+        bh = dataclasses.replace(scene.blackhole, mass=mass, spin=spin)
+        return diff_trace.render_image_diff(
+            dataclasses.replace(scene, blackhole=bh), camera, size,
+            size).mean()
+
+    v0 = {"mass": 1.0, "spin": 0.5}
+    vs = {k: torch.tensor(v, dtype=torch.float64, device=dev,
+                          requires_grad=True) for k, v in v0.items()}
+    loss(**vs).backward()
+    out = {}
+    for k in v0:
+        with torch.no_grad():
+            fd = [float(loss(**{**vs, k: vs[k] + sgn * eps}))
+                  for sgn in (1.0, -1.0)]
+        fd = (fd[0] - fd[1]) / (2 * eps)
+        ad = float(vs[k].grad)
+        out[k] = {"ad": ad, "fd": fd, "rel": abs(ad - fd) / abs(fd)}
+        check(math.isfinite(ad) and abs(ad - fd) <= rtol * abs(fd),
+              f"reverse mode against FD, d/d{k}: {out}")
+    return out
+
+
+def bench_grad(scene, o, d):
+    """bench.py's BENCH_GRAD=bucketed: grad_over_chunks over {mass, spin}
+    of the bench loss sum(colour) / 3n, the rays in 16 chunks."""
+    from blackhole_tpu_torch.grad import bucketed
+
+    n3 = 3 * o.shape[0]
+
+    def scene_fn(p):
+        return dataclasses.replace(scene, blackhole=dataclasses.replace(
+            scene.blackhole, mass=p["mass"], spin=p["spin"]))
+
+    params = {"mass": scene.blackhole.mass.clone(),
+              "spin": scene.blackhole.spin.clone()}
+    return bucketed.grad_over_chunks(scene_fn, params, o, d,
+                                     lambda c, i: c.sum() / n3, chunks=16)
+
+
+# Phase 15: the card's reverse-mode gradients of the bench loss, ray by
+# ray, over every SAMPLE_STRIDE-th ray of the 1024x1024 image, against
+# the CPU's (sample_stats).  A near-critical ray's gradient is chaotic:
+# one ray whose step count differs by 3 between the card and the CPU
+# carries d colour/d mass -83,541 on one and -22,330 on the other, which
+# moves the sample's whole gradient 13-fold (NVIDIA H100 80GB HBM3, 700 W).  So, as
+# K2's contract does with forward tangents, the gate holds each ray's
+# d colour/d param clipped at TANGENT_CLIP, over the rays whose result
+# code and step count agree: per ray in mean and p99 within
+# TANGENT_LIMITS["steady"] (measured 1.8e-4 and 7.5e-4 at most), and
+# their loss gradient within SAMPLE_GRAD_RTOL (measured 4.7e-4; with the
+# trig slaving's transpose dropped 0.22).
+SAMPLE_STRIDE = 256
+SAMPLE_GRAD_RTOL = 2e-3
+
+
+def sample_rays():
+    """Every SAMPLE_STRIDE-th ray of the bench camera's 1024x1024 image,
+    made on the CPU (the card's copy of them is bitwise the same)."""
+    from blackhole_tpu_torch.render import camera as cam
+
+    import torch
+
+    _, camera = bench_scene(torch.device("cpu"))
+    o, d = cam.generate_rays(camera, 1024, 1024)
+    return (o.reshape(-1, 3)[::SAMPLE_STRIDE].contiguous(),
+            d.reshape(-1, 3)[::SAMPLE_STRIDE].contiguous())
+
+
+def sample_grads(dev):
+    """Per ray of sample_rays(), on dev: its d sum(colour)/d(mass, spin)
+    (3n times the bench loss's per-ray gradient) by reverse mode through
+    diff_trace.trace_rays_diff with the mass and the spin as per-ray
+    leaves, and its result code and step count; all on the CPU."""
+    import torch
+
+    from blackhole_tpu_torch.grad import diff_trace
+
+    scene, _ = bench_scene(dev)
+    o, d = (x.to(dev) for x in sample_rays())
+    n = o.shape[0]
+    leaves = {k: getattr(scene.blackhole, k).detach().expand(n).clone()
+              .requires_grad_(True) for k in ("mass", "spin")}
+    s = dataclasses.replace(scene, blackhole=dataclasses.replace(
+        scene.blackhole, **leaves))
+    hit = diff_trace.trace_rays_diff(o, d, s)
+    grads = torch.autograd.grad(hit.color.sum(), list(leaves.values()))
+    return {"result": hit.result.cpu(), "steps": hit.steps.cpu(),
+            **{k: g.double().cpu() for k, g in zip(leaves, grads)}}
+
+
+def sample_stats(got, ref, gate=True):
+    """The phase-15 contract of per-ray gradients `got` against `ref`
+    (sample_grads, as tensors or arrays); raises on a breach (gate=False:
+    only reports)."""
+    import torch
+
+    got, ref = ({k: torch.as_tensor(v) for k, v in x.items()}
+                for x in (got, ref))
+    agree = (got["result"] == ref["result"]) & (got["steps"] == ref["steps"])
+    n = agree.numel()
+    stats = {"n_rays": n, "codes_differ": int((got["result"]
+                                               != ref["result"]).sum()),
+             "steps_differ": int((got["steps"] != ref["steps"]).sum())}
+    gaps = []
+    for k in ("mass", "spin"):
+        a, b = (x[k].clamp(-TANGENT_CLIP, TANGENT_CLIP)[agree]
+                for x in (got, ref))
+        dif = (a - b).abs()
+        stats[f"{k}_mean"] = float(dif.mean())
+        stats[f"{k}_p99"] = float(dif.quantile(0.99))
+        stats[f"{k}_grad"] = [float(a.sum()) / (3 * n), float(b.sum()) / (3 * n)]
+        gaps.append(abs(float(a.sum() - b.sum())) / abs(float(b.sum())))
+        stats[f"{k}_whole"] = [float(got[k].sum()) / (3 * n),
+                               float(ref[k].sum()) / (3 * n)]
+    stats["grad_rel_err"] = max(gaps)
+    mean, p99 = TANGENT_LIMITS["steady"]
+    stats["ok"] = (max(stats["mass_mean"], stats["spin_mean"]) < mean
+                   and max(stats["mass_p99"], stats["spin_p99"]) < p99
+                   and stats["grad_rel_err"] <= SAMPLE_GRAD_RTOL)
+    check(stats["ok"] or not gate,
+          f"card and CPU reverse-mode gradients differ: {stats}")
+    return stats
+
+
+def fit_case(dev, dtype, size, steps, learning_rate, start_mass):
+    """inverse.fit of log_mass alone from start_mass toward a target
+    rendered at mass 1 (small_diff_scene): (losses, fitted mass, seconds,
+    whether spin_raw stayed bit for bit at every step)."""
+    import torch
+
+    from blackhole_tpu_torch.grad import diff_trace, inverse
+
+    scene, camera = small_diff_scene(dev, dtype)
+    target = diff_trace.render_image_diff(scene, camera, size, size).detach()
+    bad = dataclasses.replace(scene, blackhole=dataclasses.replace(
+        scene.blackhole, mass=torch.tensor(start_mass, dtype=dtype,
+                                           device=dev)))
+    spin_raw = inverse.pack_params(bad, camera)["spin_raw"]
+    frozen = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, _, losses = inverse.fit(
+        target, bad, camera, size, size, steps=steps,
+        learning_rate=learning_rate, optimize=("log_mass",),
+        callback=lambda i, p, loss: frozen.append(
+            torch.equal(p["spin_raw"].detach(), spin_raw)))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return (losses, float(fitted.blackhole.mass), time.perf_counter() - t0,
+            all(frozen))
+
+
+def cpu_references(threads=3):
+    """The CPU's share of phases 15 and 16, run in a subprocess beside
+    the card's phases: sample_grads on the CPU, the same with the trig
+    slaving's transpose dropped (a planted fault; this process ends
+    after), and inverse.fit on the JAX package's test case
+    (tests/test_grad.py: 16x16, 150 steps, float64, 25 Adam steps from
+    mass 1.15 at rate 2e-2).  That fit's 256 rays leave the card idle
+    (3,750 eager steps cost ~4 min there, host-bound); phase 16 times
+    the fit on the card at 256x256 instead."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import torch
+
+    torch.set_num_threads(threads)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    grads = sample_grads(cpu)
+    sample_s = time.perf_counter() - t0
+    losses, mass, fit_s, frozen = fit_case(cpu, torch.float64, 16, 25, 2e-2,
+                                           1.15)
+    # Last, the planted fault: the trig slaving's transpose dropped.
+    from blackhole_tpu_torch.render import trace
+
+    trace._SlaveTrig.backward = staticmethod(lambda ctx, *g: (None,) * 6)
+    def arrays(g):
+        return {k: v.numpy() for k, v in g.items()}
+
+    return {"sample": arrays(grads), "sample_s": sample_s,
+            "planted": arrays(sample_grads(cpu)), "fit": {
+                "losses_first_last": [losses[0], losses[-1]], "mass": mass,
+                "spin_frozen": frozen, "seconds": fit_s}}
+
+
+def check_reverse_path(dev, scene, o, d, k1_ms, fwd_grads, cpu_ref):
+    """Phase 15: the reverse half of the main path at 1024x1024 (16
+    chunks, each at its bucket of the step ladder, sized by one K1 pass;
+    chunks that share a bucket go through one pass). Gates: K1 launched
+    by the sizing pass, the gradient finite, and the card's per-ray
+    gradients over sample_rays() against the CPU's under sample_stats'
+    contract (cpu_ref() returns cpu_references' result); the CPU's with
+    the trig slaving's transpose dropped must fail that contract (a
+    planted fault).  fwd_grads:
+    phase 8's forward-mode gradient of the same loss, printed beside it
+    (clipped colour tangents: another estimator)."""
+    import torch
+
+    from blackhole_tpu_torch.grad import bucketed
+    from blackhole_tpu_torch.render import trace_kernel
+
+    n = o.shape[0]
+    trace_kernel.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    loss, grads = bench_grad(scene, o, d)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = trace_kernel.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    g = {k: float(v) for k, v in grads.items()}
+    check(launches >= 1, "grad_over_chunks' sizing pass launched no K1")
+    check(all(math.isfinite(x) for x in g.values()),
+          f"grad_over_chunks gradient is not finite: {g}")
+    need = bucketed._chunk_steps(o.view(16, -1, 3), d.view(16, -1, 3),
+                                 scene).tolist()
+    ladder = bucketed._buckets_for(scene.config.max_steps)
+    buckets = [next((b for b in ladder if s + 1 <= b), ladder[-1])
+               for s in need]
+    print(f"grad_over_chunks 1024^2 rk4 (16 chunks): {secs:.3f} s, "
+          f"{n / secs:.1f} rays/s; K1 launches {launches} (the sizing "
+          f"launch: K1 1024^2 rk4 {k1_ms:.3f} ms, phase 7); buckets "
+          f"{buckets} (steps {need}); peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"gradient grad_over_chunks 1024^2: loss {float(loss):.9f} "
+          f"d/dmass {g['mass']:.9e} d/dspin {g['spin']:.9e}; forward mode "
+          f"(phase 8, clipped tangents) d/dmass {fwd_grads[0]:.9e} d/dspin "
+          f"{fwd_grads[1]:.9e}")
+
+    t0 = time.perf_counter()
+    card = sample_grads(dev)
+    card_s = time.perf_counter() - t0
+    ref = cpu_ref()
+    stats = sample_stats(card, ref["sample"], gate=False)
+    print(f"per-ray gradients, every {SAMPLE_STRIDE}th ray, card ({card_s:.1f}"
+          f" s) against CPU ({ref['sample_s']:.1f} s): {json.dumps(stats)}")
+    planted = sample_stats(ref["planted"], card, gate=False)
+    print(f"planted fault (the slave-trig transpose dropped, on the CPU) "
+          f"against the card: {json.dumps(planted)}")
+    sample_stats(card, ref["sample"])
+    check(not planted["ok"],
+          "the sample gate passes with the slave-trig transpose dropped")
+    return {"seconds": secs, "rays_per_s": n / secs, "launches": launches,
+            "peak_bytes": peak, "grad": g, "sample": stats,
+            "planted": planted}
+
+
+def check_reverse_fit(dev, cpu_ref, size=256, steps=3):
+    """Phase 16: grad.inverse.fit.  The JAX package's test case (from
+    cpu_references, run on the CPU) must halve its loss and keep the
+    frozen spin bit for bit; on the card, `steps` Adam steps at size x
+    size (float32, 150 steps, from mass 1.03), ms per step."""
+    import torch
+
+    fit = cpu_ref()["fit"]
+    check(fit["losses_first_last"][1] < 0.5 * fit["losses_first_last"][0],
+          f"fit did not halve the loss: {fit}")
+    check(abs(fit["mass"] - 1.0) < 0.15, f"fit moved mass away: {fit}")
+    check(fit["spin_frozen"], f"fit moved the frozen spin: {fit}")
+    losses, mass, secs, frozen = fit_case(dev, torch.float32, size, steps,
+                                          1e-2, 1.03)
+    out = {"jax_test_case_cpu": fit, f"ms_per_step_{size}":
+           1e3 * secs / steps, f"losses_{size}": losses, "mass": mass}
+    check(all(math.isfinite(x) for x in losses) and frozen,
+          f"fit at {size}^2: {out}")
+    return out
+
+
 _VARIANT = re.compile(r"(trace_kernel|fwdgrad_kernel)I(Li\d+E)?"
                       r"Lb(\d)ELb(\d)ELb(\d)E")
 
@@ -1725,6 +2117,24 @@ def main() -> int:
     print(f"build: {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
     print_ptxas(libs)
+    # The CPU's share of phases 15 and 16 runs beside the card's phases.
+    import multiprocessing
+
+    cpu_pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        return _main_phases(smi, dev, libs, cpu_pool.apply_async(
+            cpu_references).get)
+    finally:
+        cpu_pool.terminate()
+        cpu_pool.join()
+
+
+def _main_phases(smi, dev, libs, cpu_ref) -> int:
+    """Phases 3-16 and the last three lines (main's); cpu_ref() returns
+    cpu_references' result."""
+    import torch
+
+    from blackhole_tpu_torch import cuda_lib
 
     print(f"[{time.perf_counter() - T0:.1f} s] phase 3")
     # 3. K1 against plain on the card.
@@ -1866,12 +2276,32 @@ def main() -> int:
                          **track_steps}.items()})
     # The two regimes of every K1 launch of the main and soft paths.
     print_regimes(dev, mixes, smi)
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 13")
+    # 13. The XLA engine on the card against K1.
+    for stats in check_xla_engine(dev, camera, scene, scene45):
+        print(f"xla engine: {json.dumps(stats)}")
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 14")
+    # 14. Reverse mode against finite differences, float64.
+    print(f"reverse mode AD/FD 8^2 f64: {json.dumps(check_reverse_fd(dev))}")
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 15")
+    # 15. The reverse half of the main path (bench.py's BENCH_GRAD=bucketed).
+    rev = check_reverse_path(dev, scene, o, d, ms_k,
+                             [float(grad_runs["rk4"][1][k])
+                              for k in ("mass", "spin")], cpu_ref)
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 16")
+    # 16. The reverse-mode fit.
+    print(f"fit: {json.dumps(check_reverse_fit(dev, cpu_ref))}")
     print(f"[{time.perf_counter() - T0:.1f} s] done")
 
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "trace_planes", **KERNELS["trace_planes"],
-         "launches": fwd_launches[0], "max_abs_err": big["color_max"],
+         "launches": fwd_launches[0] + rev["launches"],
+         "max_abs_err": big["color_max"],
          "ms": ms_k, "plain_ms": ms_p, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "trace_planes_fwdgrad", **KERNELS["trace_planes_fwdgrad"],

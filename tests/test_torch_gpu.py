@@ -8,12 +8,15 @@ after one and two steps (the one-step check), depth-sorted traces
 (forward and fwdgrad) bitwise equal to raster ones, launches of two
 scenes queued on one stream and on two streams each reading its own
 scene scalars from the constant bank, and torch.func.jvp of a trace launching K2 once with one
-tangent (and a second derivative through it raising).  Run
+tangent (and a second derivative through it raising); and the eager XLA
+engine and reverse mode on the card against the CPU.  Run
 on a machine with a GPU (and without jax, which the suite's conftest
 imports):
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -206,3 +209,39 @@ def test_kernel_rejects_grad_and_bad_layout(cuda):
         trace_kernel.trace_planes_fwdgrad(
             torch.zeros(12, device=cuda), torch.zeros(1, 12, device=cuda),
             inp, torch.zeros(2, 16, 8, device=cuda), True, 4, False)
+
+
+def test_xla_engine_and_reverse_mode_on_card(cuda):
+    """The XLA engine and reverse mode (eager torch, no kernel of their
+    own) on the card against the same calls on the CPU:
+    trace_rays_fast(engine="xla") at the 32x32 parity case under the RK4
+    contract (chip_smoke.parity_stats), and grad_over_chunks'
+    d/d(mass, spin) of the JAX package's gradient-test case (16x16, 150
+    steps, float64, 4 chunks) within rtol 1e-6."""
+    from blackhole_tpu_torch.grad import bucketed
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import image
+
+    hits = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, _, o, d = chip_smoke.parity_scene(0.9, True, "rk4", dev, 32)
+        hits.append(image.trace_rays_fast(o, d, scene, engine="xla").map(
+            lambda x: x.cpu()))
+    chip_smoke.parity_stats(hits[0], hits[1], exact=True)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, camera = chip_smoke.small_diff_scene(dev, torch.float64)
+        o, d = cam.generate_rays(camera, 16, 16)
+
+        def scene_fn(p, scene=scene):
+            return dataclasses.replace(scene, blackhole=dataclasses.replace(
+                scene.blackhole, mass=p["mass"], spin=p["spin"]))
+
+        params = {k: v.clone() for k, v in (("mass", scene.blackhole.mass),
+                                            ("spin", scene.blackhole.spin))}
+        grads.append(bucketed.grad_over_chunks(
+            scene_fn, params, o.reshape(-1, 3), d.reshape(-1, 3),
+            lambda c, i: c.sum(), chunks=4)[1])
+    for k in ("mass", "spin"):
+        assert abs(float(grads[0][k]) - float(grads[1][k])) <= 1e-6 * abs(
+            float(grads[1][k])), (k, grads)

@@ -1,0 +1,69 @@
+"""The PyTorch port and chip_smoke.py import neither jax nor the JAX
+package: every import statement of every module (function-level imports
+included), and at run time the XLA engine, reverse mode and fit."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "blackhole_tpu")
+
+
+def _imported(path: Path):
+    """(line, top-level module name) of every import in the file."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_port_modules_and_chip_smoke_import_no_jax():
+    files = sorted((ROOT / "blackhole_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {name}"
+           for p in files for line, name in _imported(p)
+           if name in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_reverse_path_runs_without_jax():
+    """The XLA engine, grad_over_chunks and one fit step at 4x4 leave
+    jax and the JAX package out of sys.modules."""
+    code = (
+        "import sys, dataclasses, torch\n"
+        "from blackhole_tpu_torch.geom.types import "
+        "BlackHole, Camera, Disk, Scene, SimConfig\n"
+        "from blackhole_tpu_torch.grad import bucketed, inverse\n"
+        "from blackhole_tpu_torch.render import camera as cam, image\n"
+        "cpu = dict(device='cpu')\n"
+        "scene = Scene(BlackHole.create(1.0, 0.9, **cpu), Disk.create(**cpu),\n"
+        "              SimConfig.create(max_steps=12, time_step=0.5, **cpu))\n"
+        "camera = Camera.create(position=(0.0, -30.0, 8.0),\n"
+        "                       direction=(0.0, 30.0, -8.0),\n"
+        "                       up=(0.0, 0.0, 1.0), **cpu)\n"
+        "img = image.render_image(scene, camera, 4, 4, engine='xla')\n"
+        "o, d = cam.generate_rays(camera, 4, 4)\n"
+        "def scene_fn(p):\n"
+        "    return dataclasses.replace(scene, blackhole=dataclasses.replace(\n"
+        "        scene.blackhole, mass=p['mass']))\n"
+        "loss, g = bucketed.grad_over_chunks(\n"
+        "    scene_fn, {'mass': torch.tensor(1.0)}, o.reshape(-1, 3),\n"
+        "    d.reshape(-1, 3), lambda c, i: c.sum(), chunks=2)\n"
+        "assert torch.isfinite(g['mass'])\n"
+        "inverse.fit(img, scene, camera, 4, 4, steps=1)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'blackhole_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -191,12 +191,14 @@ def test_unported_paths_raise():
     scene, _, o, d = _case(0.9, True, max_steps=20)
     o, d = torch.from_numpy(o[:64]), torch.from_numpy(d[:64])
     tscene = scene_from_reference(scene, device="cpu")
-    with pytest.raises(NotImplementedError):
-        image.trace_rays_fast(o, d, dataclasses.replace(
+    # Only "auto" and "xla" are engines; the kernel itself takes RK4 and
+    # RKF45 only (the symplectic integrators go to the XLA engine).
+    with pytest.raises(ValueError):
+        image.trace_rays_fast(o, d, tscene, engine="pallas")
+    with pytest.raises(ValueError):
+        trace_kernel.trace_rays_kernel(o, d, dataclasses.replace(
             tscene, config=dataclasses.replace(tscene.config,
                                                integrator="leapfrog")))
-    with pytest.raises(NotImplementedError):
-        image.trace_rays_fast(o, d, tscene, engine="xla")
     # Forward mode only: reverse mode through the loop raises (at
     # .backward(), since the planes pass is an autograd Function whose
     # forward-mode rule is ported) instead of returning a silent zero.

@@ -1004,3 +1004,51 @@ def test_k1_twin_planes_bitwise_to_reference_build(host_twin, case):
         n_diff = int((_ray_digests(out) != rays).sum())
         pytest.fail(f"{key}: planes {bad} differ from the reference build's "
                     f"on at least {n_diff} of {out.shape[1]} rays")
+
+
+# --- the Dual<2> twin at the controller states -----------------------------
+
+
+@pytest.mark.parametrize("track", [False, True], ids=["disk", "disk-track"])
+@pytest.mark.parametrize("states", ["clamped", "rejected"])
+def test_dual_twin_at_controller_states_matches_plain(host_twin, states,
+                                                      track):
+    """csrc's K2 step on Dual<2> (g++, no FMA) after 2 steps from
+    chip_smoke.CONTROLLER_STATES (RKF45, every first step rejected)
+    against step_update_jvp (trace_planes_fwdgrad_plain), d/d(mass, spin),
+    under chip_smoke's one-step contract (phase 5b): codes and step
+    counts equal; the median gap of the planes and of their tangents
+    within ONE_STEP_TOL, the last chord direction's within
+    ONE_STEP_CHORD_TOL; per ray on the rays whose second step a clamp of
+    the controller set (clamped_rays), which rounding cannot move.  At
+    the "rejected" states the median holds the rejected branch's rule."""
+    import chip_smoke
+
+    scene, o, d = chip_smoke.controller_scene("cpu", 64, track, states)
+    planes_in, _ = trace_kernel.prepare_fwdgrad(
+        o, d, scene, chip_smoke.mass_spin_tangents(scene))
+    scal, dscal, inp, dinp = planes_in
+    disk, _, adaptive, trk = trace_kernel.planes_args(scene)
+    args = (disk, 2, adaptive, trk)
+    plain, dplain = trace_kernel.trace_planes_fwdgrad_plain(*planes_in, *args)
+    n, p = inp.shape[1], trace_kernel.n_out(trk)
+    twin = torch.empty((3 * p, n))
+    host_twin.bh_trace_planes_fwdgrad_host(
+        scal.data_ptr(), dscal.data_ptr(), inp.data_ptr(), dinp.data_ptr(),
+        twin.data_ptr(), n, 2, int(disk), int(adaptive), 2, int(trk))
+    out, dout = twin[:p], twin[p:].view(2, p, n)
+    np.testing.assert_array_equal(out[0].numpy(), plain[0].numpy())
+    np.testing.assert_array_equal(out[2].numpy(), plain[2].numpy())
+    prim = torch.maximum(*chip_smoke.one_step_gaps(out, plain, trk))
+    tan, chord = (torch.maximum(a, b) for a, b in zip(
+        chip_smoke.one_step_gaps(dout[0], dplain[0], trk),
+        chip_smoke.one_step_gaps(dout[1], dplain[1], trk)))
+    first = trace_kernel.trace_planes_plain(scal, inp, disk, 1, adaptive,
+                                            trk)
+    held = chip_smoke.clamped_rays(o, d, scene, args, (plain, dplain), first)
+    tol, chord_tol = chip_smoke.ONE_STEP_TOL, chip_smoke.ONE_STEP_CHORD_TOL
+    assert int(held.sum()) > 0
+    assert float(prim.median()) <= tol and float(tan.median()) <= tol
+    assert float(chord.median()) <= chord_tol
+    assert float(torch.maximum(prim, tan)[held].max()) <= tol
+    assert float(chord[held].max()) <= chord_tol
