@@ -23,3 +23,8 @@ MAX_TEMP_K = 40000.0
 # Default disk temperature model constants.
 DISK_TEMP_BASE_K = 2000.0
 DISK_TEMP_RANGE_K = 18000.0
+
+# API version of this framework.
+VERSION_MAJOR = 0
+VERSION_MINOR = 1
+VERSION_PATCH = 0

@@ -89,11 +89,29 @@ class BlackHole:
         return self.spin * self.mass
 
     @property
+    def schwarzschild_radius(self) -> Tensor:
+        return 2.0 * self.mass
+
+    @property
     def r_plus(self) -> Tensor:
         """Outer horizon M + sqrt(M^2 - a^2 - Q^2)."""
         a = self.a
         disc = torch.clamp(self.mass**2 - a**2 - self.charge**2, min=0.0)
         return self.mass + torch.sqrt(disc)
+
+    @property
+    def r_minus(self) -> Tensor:
+        """Inner horizon M - sqrt(M^2 - a^2 - Q^2); 0 for Schwarzschild."""
+        a = self.a
+        disc = torch.clamp(self.mass**2 - a**2 - self.charge**2, min=0.0)
+        return torch.where((self.spin == 0.0) & (self.charge == 0.0),
+                           torch.zeros_like(self.mass),
+                           self.mass - torch.sqrt(disc))
+
+    @property
+    def ergosphere_radius(self) -> Tensor:
+        """Equatorial ergosphere radius (2M)."""
+        return 2.0 * self.mass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,6 +242,10 @@ class Hit:
         return Hit(*(fn(getattr(self, f.name))
                      for f in dataclasses.fields(self)))
 
+    def __getitem__(self, idx) -> "Hit":
+        """Every field indexed by idx along the batch dims."""
+        return self.map(lambda x: x[idx])
+
 
 # --- state carry from the JAX package -----------------------------------
 
@@ -303,7 +325,7 @@ def _register(cls, static=()):
 
     pytree.register_pytree_node(
         cls, flatten, unflatten,
-        serialized_type_name=f"blackhole_tpu_torch.geom.types.{cls.__name__}",
+        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}",
     )
 
 

@@ -1,12 +1,15 @@
-"""Derived black hole quantities used by the render and gradient paths.
+"""Derived black hole quantities: horizons, ISCO, ergosphere, frame
+dragging, time dilation, effective potential, photon sphere, shadow.
 
-PyTorch counterpart of the matching functions of
-blackhole_tpu.metrics.derived.  Their max, min, clip and abs follow
+PyTorch counterpart of blackhole_tpu.metrics.derived.  Their max, min,
+clip and abs follow
 JAX's derivative rules (tangent_rules), so torch.func.jvp and
 .backward() of them are the JAX package's.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -38,6 +41,83 @@ def static_time_dilation_kerr(r, M, a, charge=0.0):
     return 1.0 / torch.sqrt(jmax(f, EPSILON))
 
 
+def _cbrt(x):
+    """Real cube root (torch has none)."""
+    return torch.sign(x) * jabs(x) ** (1.0 / 3.0)
+
+
+def isco_radius(M, a_over_M, prograde=True):
+    """Bardeen-Press-Teukolsky ISCO; 6M at a = 0.  a_over_M: the
+    dimensionless spin (its sign ignored; prograde picks the branch)."""
+    chi = (torch.where(prograde, a_over_M, -a_over_M)
+           if isinstance(prograde, torch.Tensor)
+           else a_over_M if prograde else -a_over_M)
+    one = torch.ones_like(chi)
+    z1 = 1.0 + _cbrt(jmax(1.0 - chi * chi, 0.0)) * (
+        _cbrt(one + chi) + _cbrt(one - chi)
+    )
+    z2 = torch.sqrt(3.0 * chi * chi + z1 * z1)
+    inner = jmax((3.0 - z1) * (3.0 + z1 + 2.0 * z2), 0.0)
+    sign = torch.where(chi >= 0.0, 1.0, -1.0)
+    return M * (3.0 + z2 - sign * torch.sqrt(inner))
+
+
+def inner_horizon(M, a_over_M, charge=0.0):
+    """Inner horizon r- = M - sqrt(M^2 - a^2 - Q^2)."""
+    a = a_over_M * M
+    return M - torch.sqrt(jmax(M * M - a * a - charge * charge, 0.0))
+
+
+def ergosphere_radius(theta, M, a_over_M):
+    """r_ergo(theta) = M + sqrt(M^2 - a^2 cos^2 theta)."""
+    a = a_over_M * M
+    ct = torch.cos(theta)
+    return M + torch.sqrt(jmax(M * M - a * a * ct * ct, 0.0))
+
+
+def frame_dragging_omega(r, theta, M, a_over_M):
+    """Frame-dragging angular velocity -g_tphi / g_phph
+    = 2 M r a / (Sigma (r^2 + a^2) + 2 M r a^2 sin^2)."""
+    a = a_over_M * M
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sigma = r * r + a * a * ct * ct
+    denom = sigma * (r * r + a * a) + 2.0 * M * r * a * a * st * st
+    return 2.0 * M * r * a / jmax(denom, EPSILON)
+
+
+def effective_potential(r, l, M, a_over_M=0.0):
+    """Effective potential of a massive test particle: at a = 0
+    (1 - rs/r)(1 + l^2/r^2) clamped at rs; otherwise the simplified
+    equatorial Kerr form clamped at r+."""
+    rs = 2.0 * M
+    a = a_over_M * M
+    r_s = jmax(r, rs + EPSILON)
+    schw = (1.0 - rs / r_s) * (1.0 + (l * l) / (r_s * r_s))
+    r_plus = M + torch.sqrt(jmax(M * M - a * a, 0.0))
+    r_k = jmax(r, r_plus + EPSILON)
+    E = 1.0
+    kerr = (E * E - 1.0) + (2.0 * M / r_k) * (
+        l * l / (r_k * r_k) - 2.0 * M * a * l / (r_k * r_k * r_k)
+    )
+    return torch.where(torch.as_tensor(a_over_M, device=schw.device) == 0.0,
+                       schw, kerr)
+
+
+def photon_sphere_radius(M, charge=0.0):
+    """Photon sphere radius: 3M at Q = 0; Reissner-Nordstrom
+    (3M + sqrt(9 M^2 - 8 Q^2)) / 2."""
+    disc = torch.sqrt(jmax(9.0 * M * M - 8.0 * charge * charge, 0.0))
+    return 0.5 * (3.0 * M + disc)
+
+
+def rn_critical_impact_parameter(M, charge=0.0):
+    """Reissner-Nordstrom critical impact parameter r_ph / sqrt(f(r_ph)),
+    f = 1 - 2M/r + Q^2/r^2; sqrt(27) M at Q = 0."""
+    r_ph = photon_sphere_radius(M, charge)
+    f = 1.0 - 2.0 * M / r_ph + (charge * charge) / (r_ph * r_ph)
+    return r_ph / torch.sqrt(jmax(f, EPSILON))
+
+
 def kerr_photon_orbit_radius(M, a_over_M=0.0, sign=1.0):
     """Equatorial circular photon-orbit radius (Bardeen 1972):
     2M (1 + cos(2/3 arccos(-sign a/M))); 3M at a = 0."""
@@ -50,6 +130,29 @@ def kerr_photon_orbit_radius(M, a_over_M=0.0, sign=1.0):
     )
 
 
+def shadow_radius(M, a_over_M=0.0):
+    """Apparent shadow (critical impact parameter): sqrt(27) M at a = 0;
+    for Kerr the mean of the prograde and retrograde critical equatorial
+    impact parameters -(r^3 - 3 M r^2 + a^2 r + a^2 M) / (a (r - M)) at
+    the photon-orbit radii."""
+    a_over_M = torch.as_tensor(a_over_M, dtype=M.dtype, device=M.device)
+    a = a_over_M * M
+
+    def b_crit(rp):
+        num = rp * rp * rp - 3.0 * M * rp * rp + a * a * rp + a * a * M
+        den = a * (rp - M)
+        schw_b = math.sqrt(27.0) * M
+        return torch.where(
+            jabs(a) < 1e-8,
+            schw_b,
+            jabs(-num / torch.where(jabs(den) < EPSILON, EPSILON, den)),
+        )
+
+    r_pro = kerr_photon_orbit_radius(M, a_over_M, +1.0)
+    r_ret = kerr_photon_orbit_radius(M, a_over_M, -1.0)
+    return 0.5 * (b_crit(r_pro) + b_crit(r_ret))
+
+
 def keplerian_orbital_velocity(r, M):
     """Circular-orbit speed v = sqrt(M/r)."""
     return torch.sqrt(M / jmax(r, EPSILON))
@@ -59,6 +162,11 @@ def event_horizon(M, a_over_M, charge=0.0):
     """Outer horizon r+ = M + sqrt(M^2 - a^2 - Q^2)."""
     a = a_over_M * M
     return M + torch.sqrt(jmax(M * M - a * a - charge * charge, 0.0))
+
+
+def hawking_temperature(M):
+    """T_H = 1 / (8 pi M) in geometric units."""
+    return 1.0 / (8.0 * math.pi * M)
 
 
 def kerr_radial_potential(r, L, Qc, M, a, charge=0.0):

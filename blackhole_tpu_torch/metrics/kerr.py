@@ -1,7 +1,6 @@
 """Kerr-Newman metric in Boyer-Lindquist coordinates.
 
-PyTorch counterpart of blackhole_tpu.metrics.kerr's metric,
-inverse_metric and sigma_delta.
+PyTorch counterpart of blackhole_tpu.metrics.kerr.
 Component convention (t, r, theta, phi); nonzero entries g_tt, g_tphi,
 g_rr, g_thth, g_phph.  tm = 2 M r - Q^2 replaces every 2 M r mass term.
 """
@@ -76,3 +75,24 @@ def inverse_metric(r, theta, M, a, Q=0.0):
     st2_safe = jmax(st2, EPSILON)
     g_phph = (delta - a * a * st2) * inv_sd / st2_safe
     return InverseMetric(g_tt, g_tphi, g_rr, g_thth, g_phph)
+
+
+def _matrix(g):
+    """(..., 4, 4) matrix of the five nonzero components."""
+    zeros = torch.zeros_like(g.g_tt)
+    return torch.stack([
+        torch.stack([g.g_tt, zeros, zeros, g.g_tphi], dim=-1),
+        torch.stack([zeros, g.g_rr, zeros, zeros], dim=-1),
+        torch.stack([zeros, zeros, g.g_thth, zeros], dim=-1),
+        torch.stack([g.g_tphi, zeros, zeros, g.g_phph], dim=-1),
+    ], dim=-2)
+
+
+def metric_matrix(r, theta, M, a, Q=0.0):
+    """Full covariant metric as a (..., 4, 4) tensor."""
+    return _matrix(metric(r, theta, M, a, Q))
+
+
+def inverse_metric_matrix(r, theta, M, a, Q=0.0):
+    """Full contravariant metric as a (..., 4, 4) tensor."""
+    return _matrix(inverse_metric(r, theta, M, a, Q))

@@ -1,7 +1,7 @@
 """Pinhole camera ray generation with sub-pixel jitter.
 
-PyTorch counterpart of blackhole_tpu.render.camera (the forward path's
-subset).  Rays come out on the camera's device.
+PyTorch counterpart of blackhole_tpu.render.camera.  Rays come out on
+the camera's device.
 """
 
 from __future__ import annotations
@@ -86,6 +86,34 @@ def generate_rays_for_rows(camera: Camera, width: int, height: int, rows,
         forward[None, None, :]
         + ndc_x[..., None] * right[None, None, :]
         + ndc_y[..., None] * up[None, None, :]
+    )
+    directions = coords.normalize(d)
+    origins = torch.broadcast_to(camera.position, directions.shape)
+    return origins, directions
+
+
+def generate_rays_for_pixels(camera: Camera, width: int, height: int,
+                             pix_x, pix_y, offset_x=0.5, offset_y=0.5):
+    """Primary rays for an arbitrary pixel subset: pix_x, pix_y int
+    tensors (N,), offsets scalars or (N,).  Returns (origins,
+    directions), each (N, 3)."""
+    device = camera.position.device
+    forward, right, up = camera_basis(camera)
+    aspect = width / height
+    fov_rad = camera.fov_deg * (PI / 180.0)
+    plane_h = 2.0 * torch.tan(0.5 * fov_rad)
+    plane_w = plane_h * aspect
+
+    px = torch.as_tensor(pix_x, device=device).to(torch.float32)
+    py = torch.as_tensor(pix_y, device=device).to(torch.float32)
+    offset_x = torch.as_tensor(offset_x, dtype=torch.float32, device=device)
+    offset_y = torch.as_tensor(offset_y, dtype=torch.float32, device=device)
+    ndc_x = (2.0 * (px + offset_x) / width - 1.0).to(plane_w.dtype) * plane_w
+    ndc_y = (1.0 - 2.0 * (py + offset_y) / height).to(plane_h.dtype) * plane_h
+    d = (
+        forward[None, :]
+        + ndc_x[..., None] * right[None, :]
+        + ndc_y[..., None] * up[None, :]
     )
     directions = coords.normalize(d)
     origins = torch.broadcast_to(camera.position, directions.shape)

@@ -1,7 +1,6 @@
 """Disk temperature, blackbody colour and relativistic shading.
 
-PyTorch counterpart of blackhole_tpu.render.shading (the forward path's
-subset).  Branch-free over rays, batched over leading dims.  Its max,
+PyTorch counterpart of blackhole_tpu.render.shading.  Branch-free over rays, batched over leading dims.  Its max,
 min, clip and abs follow JAX's derivative rules (tangent_rules), so
 forward and reverse mode through it are the JAX package's.
 """
@@ -121,6 +120,35 @@ def apply_relativistic_effects(color, doppler, grav_redshift,
         g = g * beaming
         b = b * beaming
     return jclip(torch.stack([r, g, b], dim=-1), 0.0, 1.0)
+
+
+def doppler_shift_wavelength(wavelength, radial_velocity):
+    """Relativistic longitudinal Doppler shift lambda sqrt((1 + beta) /
+    (1 - beta)), beta the radial velocity over c (positive: receding)."""
+    beta = jclip(radial_velocity, -1.0 + 1e-6, 1.0 - 1e-6)
+    return wavelength * torch.sqrt((1.0 + beta) / (1.0 - beta))
+
+
+def apply_redshift_to_rgb(color, redshift_z):
+    """Shift an RGB colour by redshift z: the colour's pseudo
+    temperature (from its blue/red balance) is divided by 1 + z and
+    mapped back through the blackbody palette at the colour's luminance
+    dimmed by (1 + z)^-4."""
+    z1 = jmax(1.0 + redshift_z, 1e-3)
+    r, g, b = color[..., 0], color[..., 1], color[..., 2]
+    lum = jmax(0.2126 * r + 0.7152 * g + 0.0722 * b, EPSILON)
+    balance = (b - r) / jmax(r + g + b, EPSILON)
+    t_norm = jclip(0.5 + 0.5 * balance, 0.0, 1.0)
+    temp = MIN_TEMP_K + t_norm * (MAX_TEMP_K - MIN_TEMP_K)
+    shifted = temperature_to_rgb(temp / z1)
+    dimming = (1.0 / z1) ** 4
+    scale = lum / jmax(
+        0.2126 * shifted[..., 0]
+        + 0.7152 * shifted[..., 1]
+        + 0.0722 * shifted[..., 2],
+        EPSILON,
+    )
+    return jclip(shifted * (scale * dimming)[..., None], 0.0, 1.0)
 
 
 def sky_color(direction):

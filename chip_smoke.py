@@ -126,6 +126,26 @@ Phases (each raises on failure; nothing is caught):
      float64, 25 Adam steps from mass 1.15 at rate 2e-2) halves the loss
      and keeps the frozen spin bit for bit, on the CPU; 3 steps at
      256x256 (float32) on the card, ms per step.
+  17. the bh_* API, the particle simulator and the CLI on the card:
+     (a) the five canonical rays of the CLI's tests (main.c's scene)
+     through api.bh_trace_rays_batch (K1, launches counted) against the
+     same call on a CPU context under the RK4 contract, and
+     bh_trace_ray of ray 1 (the XLA engine) giving ray 1's code; (b) the
+     bench frame's 1024x1024 rays through bh_trace_rays_batch on a
+     context set to the bench scene by the setters, bit for bit phase
+     7's trace_rays_fast Hit, rays/s (median of 3, min and max); (c) the
+     particle simulator on PARTICLE_POOLS' two pools (the reference
+     visualizer's 5,000 slots with 3,000 disk particles, and 2^20 slots
+     seeded in the same proportions, with TEST particles inside 20 r_s),
+     bh_update_particles steps timed (particles x steps / s, the
+     geodesic and Newtonian shares), then one step from the same state
+     on the card and on the CPU for every PARTICLE_SAMPLE-th slot
+     (positions and velocities within rtol 1e-4, atol 1e-5, active
+     masks equal, particles within one ulp of the capture radius on
+     both sides listed and excluded); (d) `python -m
+     blackhole_tpu_torch.cli tests` (its ray table equal to (a)'s) and
+     `cli render` at 256x256 as two subprocesses started together, each
+     timed from its start to its exit.
 The CPU's shares of phases 15 and 16 (cpu_references) run in one
 spawned worker process from the end of phase 2 on, beside the card's
 phases, and the worker is stopped before the script returns.
@@ -1797,6 +1817,251 @@ def check_reverse_fit(dev, cpu_ref, size=256, steps=3):
     return out
 
 
+# The API path (phase 17).  The particle pools: the reference
+# visualizer's deployment (5,000 slots, 3,000 disk particles, SURVEY.md
+# 3.4 and section 4's table) and a pool of 2^20 slots seeded in the same
+# proportions, each with its number of bh_update_particles steps.
+PARTICLE_POOLS = ((5000, 100), (1 << 20, 20))
+PARTICLE_SAMPLE = 64  # the card-against-CPU step holds every 64th slot
+
+
+def api_context(device, bench=False):
+    """A bh_* context on device, configured by the setters as the CLI's
+    tests command does (main.c's scene), or as the bench scene (Kerr
+    a=0.9, disk 6-20, step 0.1, path 150, 1000 steps, tol 1e-6)."""
+    from blackhole_tpu_torch import api, cli
+
+    context = api.bh_initialize(device=device)
+    if not bench:
+        cli.configure_tests(context)
+        return context
+    for rc in (api.bh_configure_black_hole(context, 1.0, 0.9),
+               api.bh_configure_accretion_disk(context, 6.0, 20.0, 1.0, 1.0),
+               api.bh_configure_simulation(context, 0.1, 150.0, 1000, 1e-6)):
+        check(rc == api.BHError.SUCCESS, f"a bh_configure_* setter "
+              f"returned {rc}")
+    return context
+
+
+def check_api_rays(dev):
+    """Phase 17a: the five canonical rays through bh_trace_rays_batch on
+    the card (K1, launches counted) against the same call on a CPU
+    context (the plain version) under the RK4 contract, and
+    bh_trace_ray (the XLA engine) of ray 1 giving ray 1's code.
+    Returns (the card's Hit on the CPU, stats)."""
+    from blackhole_tpu_torch import api, cli
+    from blackhole_tpu_torch.render import trace_kernel
+
+    o = [r[0] for r in cli.TEST_RAYS]
+    d = [r[1] for r in cli.TEST_RAYS]
+    context = api_context(dev)
+    before = trace_kernel.launches
+    hit = api.bh_trace_rays_batch(context, o, d).map(lambda x: x.cpu())
+    launched = trace_kernel.launches - before
+    check(launched >= 1, "bh_trace_rays_batch launched no K1")
+    ref = api.bh_trace_rays_batch(api_context("cpu"), o, d)
+    stats = parity_stats(hit, ref, exact=True)
+    one = api.bh_trace_ray(context, o[0], d[0])
+    check(int(one.result) == int(hit.result[0]),
+          f"bh_trace_ray gave {int(one.result)}, the batch "
+          f"{int(hit.result[0])}")
+    return hit, {"launches": launched, "results": hit.result.tolist(),
+                 "steps": hit.steps.tolist(), **stats}
+
+
+def check_api_frame(dev, o, d, ref_hit):
+    """Phase 17b: bh_trace_rays_batch of the rays (o, d) through a
+    context set to the bench scene by the setters, timed (_timed: one
+    warm-up, median of 3), its Hit bit for bit ref_hit (trace_rays_fast
+    of the same rays and scene scalars)."""
+    from blackhole_tpu_torch import api
+    from blackhole_tpu_torch.render import trace_kernel
+
+    context = api_context(dev, bench=True)
+    before = trace_kernel.launches
+    hit, times = _timed(lambda: api.bh_trace_rays_batch(context, o, d))
+    launched = trace_kernel.launches - before
+    mism = _hits_equal(hit, ref_hit)
+    check(launched >= 1 and mism == 0, f"bh_trace_rays_batch: {launched} "
+          f"K1 launches, {mism} values differ from trace_rays_fast's")
+    n = o.shape[0]
+    return {"n_rays": n, "launches": launched, "elementwise_mismatch": mism,
+            "rays_per_s_median": n / statistics.median(times),
+            "rays_per_s_min": n / max(times),
+            "rays_per_s_max": n / min(times)}
+
+
+def seed_pool(context, capacity, generator):
+    """A pool seeded as the reference visualizer seeds its own: 3/5 of
+    the slots disk particles (bh_create_accretion_disk_particles), 1/5
+    TEST particles on perturbed circular orbits at 6-38 M (inside 20 r_s,
+    so the geodesic branch runs; one bulk insert), 1/5 free."""
+    import torch
+
+    from blackhole_tpu_torch import api
+    from blackhole_tpu_torch.particles import system as psys
+
+    n_disk, n_test = 3 * capacity // 5, capacity // 5
+    system = api.bh_create_particle_system(context, capacity)
+    system, made = api.bh_create_accretion_disk_particles(context, system,
+                                                          n_disk)
+    check(made == n_disk, f"{made} of {n_disk} disk particles seeded")
+    u = torch.rand((n_test, 4), generator=generator,
+                   device=context.device)
+    r = 6.0 + 32.0 * u[:, 0]
+    phi = 2.0 * math.pi * u[:, 1]
+    pos = torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+                       4.0 * (u[:, 2] - 0.5)], dim=-1)
+    v = torch.sqrt(context.blackhole.mass / r) * (0.9 + 0.2 * u[:, 3])
+    vel = torch.stack([-torch.sin(phi) * v, torch.cos(phi) * v,
+                       torch.zeros_like(v)], dim=-1)
+    system, ids = psys.add_particles_batch(system, pos, vel, 0.0,
+                                           psys.ParticleType.TEST)
+    check(bool((ids >= 0).all()), "the test particles did not fit")
+    return system
+
+
+def _pool_rows(system, rows):
+    """The pool of the slots `rows` (count and next_id kept)."""
+    return system.replace(**{
+        f.name: getattr(system, f.name)[rows]
+        for f in dataclasses.fields(system)
+        if getattr(system, f.name).dim()})
+
+
+def step_card_vs_cpu(system, context, cpu_context, stride=PARTICLE_SAMPLE):
+    """One bh_update_particles step from the same state on the card and,
+    for every stride-th slot, on the CPU: positions and velocities within
+    rtol 1e-4, atol 1e-5 and active masks equal, except for particles the
+    step leaves within one ulp of the capture radius r_s on both sides
+    (listed)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from blackhole_tpu_torch import api
+
+    rows = slice(None, None, stride)
+    card = _pool_rows(api.bh_update_particles(context, system), rows)
+    card = pytree.tree_map(lambda x: x.cpu(), card)
+    cpu = api.bh_update_particles(cpu_context, pytree.tree_map(
+        lambda x: x.cpu(), _pool_rows(system, rows)))
+    close = [torch.isclose(getattr(card, k), getattr(cpu, k), rtol=1e-4,
+                           atol=1e-5, equal_nan=True).all(-1)
+             for k in ("position", "velocity")]
+    same_active = card.active == cpu.active
+    rs = 2.0 * cpu_context.blackhole.mass
+    ulp = torch.nextafter(rs, torch.tensor(math.inf)) - rs
+    edge = ~same_active & torch.stack([
+        (torch.linalg.vector_norm(p.position, dim=-1) - rs).abs() <= ulp
+        for p in (card, cpu)]).all(0)
+    bad = ~(close[0] & close[1]) | (~same_active & ~edge)
+    gap = (card.position - cpu.position).abs().nan_to_num(0.0)
+    check(not bool(bad.any()), f"particle step card against CPU: slots "
+          f"{(torch.nonzero(bad)[:, 0] * stride).tolist()[:20]} differ, "
+          f"position gap max {float(gap.max()):.3e}")
+    return {"sample": int(cpu.active.numel()),
+            "position_gap_max": float(gap.max()),
+            "capture_edge_excluded": (torch.nonzero(edge)[:, 0]
+                                      * stride).tolist()}
+
+
+def check_particles(dev):
+    """Phase 17c: each PARTICLE_POOLS pool seeded on the card (seed_pool)
+    and stepped by bh_update_particles, timed by host clock to a
+    synchronise: particles x steps / s and each regime's share; then
+    step_card_vs_cpu from the final state."""
+    import torch
+
+    from blackhole_tpu_torch import api
+    from blackhole_tpu_torch.particles import dynamics
+
+    out = []
+    cpu_context = api_context("cpu", bench=True)
+    for capacity, steps in PARTICLE_POOLS:
+        context = api_context(dev, bench=True)
+        system = seed_pool(context, capacity,
+                           torch.Generator(device=dev).manual_seed(2))
+        active0 = int(system.num_active())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            system = api.bh_update_particles(context, system)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        geo = dynamics.regimes(system, context.blackhole) & system.active
+        n_active = int(system.num_active())
+        pos = system.position[system.active]
+        check(bool(torch.isfinite(pos).all()),
+              f"pool {capacity}: an active particle is not finite")
+        out.append({
+            "capacity": capacity, "steps": steps, "active_start": active0,
+            "active_end": n_active, "seconds": seconds,
+            "particle_steps_per_s": active0 * steps / seconds,
+            "geodesic_share": int(geo.sum()) / n_active,
+            "newtonian_share": 1.0 - int(geo.sum()) / n_active,
+            **step_card_vs_cpu(system, context, cpu_context)})
+    return out
+
+
+def _cli(*args):
+    """Start python -m blackhole_tpu_torch.cli with args from the
+    checkout's root; returns (process, start time)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.Popen(
+        [sys.executable, "-m", "blackhole_tpu_torch.cli", *args], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter()
+
+
+def _cli_done(proc, t0, timeout=600):
+    """(stdout, wall seconds since t0) of a _cli process; fails unless it
+    exits 0."""
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0, f"cli {' '.join(proc.args[3:])} exited "
+          f"{proc.returncode}: {err[-2000:]}")
+    return out, time.perf_counter() - t0
+
+
+def check_cli(api_hits):
+    """Phase 17d: `cli tests` and `cli render` (256x256) as two
+    subprocesses on the card, started together, each timed from its
+    start to its exit (start-up and the cached kernels' load included);
+    the tests' ray table equal to the one api_hits (phase 17a) prints,
+    the render a 256x256 PNG."""
+    import contextlib
+    import io
+
+    from blackhole_tpu_torch import cli
+    from blackhole_tpu_torch.viz import io as viz_io
+
+    out = "build/chip_smoke_render.png"
+    (ROOT / "build").mkdir(exist_ok=True)
+    (ROOT / out).unlink(missing_ok=True)
+    procs = []
+    try:
+        procs.append(_cli("tests"))
+        procs.append(_cli("render", "--width", "256", "--height", "256",
+                          "--out", out))
+        (tests, t_tests), (_, t_render) = (_cli_done(*p) for p in procs)
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        cli.print_ray_table(api_hits)
+    check(table.getvalue() in tests,
+          "cli tests' ray table differs from bh_trace_rays_batch's")
+    img = viz_io.read_image(str(ROOT / out))
+    check(img.shape == (256, 256, 3) and float(img.max()) > 0.0,
+          f"cli render wrote {img.shape}, max {float(img.max())}")
+    return {"tests_s": t_tests, "render_s": t_render,
+            "render_mean": float(img.mean())}
+
+
 _VARIANT = re.compile(r"(trace_kernel|fwdgrad_kernel)I(Li\d+E)?"
                       r"Lb(\d)ELb(\d)ELb(\d)E")
 
@@ -2130,7 +2395,7 @@ def main() -> int:
 
 
 def _main_phases(smi, dev, libs, cpu_ref) -> int:
-    """Phases 3-16 and the last three lines (main's); cpu_ref() returns
+    """Phases 3-17 and the last three lines (main's); cpu_ref() returns
     cpu_references' result."""
     import torch
 
@@ -2295,12 +2560,27 @@ def _main_phases(smi, dev, libs, cpu_ref) -> int:
     print(f"[{time.perf_counter() - T0:.1f} s] phase 16")
     # 16. The reverse-mode fit.
     print(f"fit: {json.dumps(check_reverse_fit(dev, cpu_ref))}")
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 17")
+    # 17. The bh_* API, the particle simulator and the CLI on the card.
+    t17 = time.perf_counter()
+    trace_kernel.launches = 0
+    api_hits, rays = check_api_rays(dev)
+    print(f"api rays: {json.dumps(rays)}")
+    frame = check_api_frame(dev, o, d, hit)
+    api_launches = trace_kernel.launches
+    print(f"api bench frame 1024^2 rk4 ({smi}): {json.dumps(frame)}")
+    for stats in check_particles(dev):
+        print(f"api particles ({smi}): {json.dumps(stats)}")
+    print(f"cli ({smi}): {json.dumps(check_cli(api_hits))}")
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s, K1 launches "
+          f"{api_launches}")
     print(f"[{time.perf_counter() - T0:.1f} s] done")
 
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "trace_planes", **KERNELS["trace_planes"],
-         "launches": fwd_launches[0] + rev["launches"],
+         "launches": fwd_launches[0] + rev["launches"] + api_launches,
          "max_abs_err": big["color_max"],
          "ms": ms_k, "plain_ms": ms_p, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},

@@ -9,7 +9,8 @@ after one and two steps (the one-step check), depth-sorted traces
 scenes queued on one stream and on two streams each reading its own
 scene scalars from the constant bank, and torch.func.jvp of a trace launching K2 once with one
 tangent (and a second derivative through it raising); and the eager XLA
-engine and reverse mode on the card against the CPU.  Run
+engine and reverse mode on the card against the CPU; and the bh_* API's
+five rays and its bench frame (bit for bit trace_rays_fast's).  Run
 on a machine with a GPU (and without jax, which the suite's conftest
 imports):
 
@@ -245,3 +246,22 @@ def test_xla_engine_and_reverse_mode_on_card(cuda):
     for k in ("mass", "spin"):
         assert abs(float(grads[0][k]) - float(grads[1][k])) <= 1e-6 * abs(
             float(grads[1][k])), (k, grads)
+
+
+def test_api_on_card(cuda):
+    """The bh_* API on the card (chip_smoke phase 17a-b): the five rays
+    of the CLI's tests through bh_trace_rays_batch (K1) against a CPU
+    context under the RK4 contract; the bench camera's 128x128 rays
+    through a context set to the bench scene by the setters, bit for
+    bit image.trace_rays_fast's Hit, one K1 launch per call."""
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import image
+
+    _, rays = chip_smoke.check_api_rays(cuda)
+    assert rays["launches"] == 1 and rays["result_mismatch"] == 0
+    scene, camera = chip_smoke.bench_scene(cuda)
+    o, d = cam.generate_rays(camera, 128, 128)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    stats = chip_smoke.check_api_frame(cuda, o, d,
+                                       image.trace_rays_fast(o, d, scene))
+    assert stats["elementwise_mismatch"] == 0 and stats["launches"] == 4

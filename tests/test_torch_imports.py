@@ -1,12 +1,16 @@
 """The PyTorch port and chip_smoke.py import neither jax nor the JAX
 package: every import statement of every module (function-level imports
-included), and at run time the XLA engine, reverse mode and fit."""
+included), and at run time the XLA engine, reverse mode and fit, and the
+CLI's tests command.  The API's context, like the records, is made on
+the card unless asked for another device."""
 
 import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "blackhole_tpu")
@@ -67,3 +71,41 @@ def test_reverse_path_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_cli_tests_run_without_jax():
+    """python -m blackhole_tpu_torch.cli tests --device cpu (the bh_*
+    API, the kernel's plain version, the XLA engine) leaves jax and the
+    JAX package out of sys.modules."""
+    code = (
+        "import sys\n"
+        "from blackhole_tpu_torch import cli\n"
+        "assert cli.main(['tests', '--device', 'cpu']) == 0\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'blackhole_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "Tests completed."
+
+
+def test_api_context_defaults_to_the_card():
+    """bh_initialize() with no device makes its records on cuda: without
+    a card it fails through torch's own error."""
+    import torch
+
+    from blackhole_tpu_torch import api
+
+    if torch.cuda.is_available():
+        context = api.bh_initialize()
+        assert context.device == torch.device("cuda")
+        for t in (context.blackhole.mass, context.disk.inner_radius,
+                  context.config.time_step,
+                  api.bh_create_particle_system(context, 4).position):
+            assert t.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            api.bh_initialize()
