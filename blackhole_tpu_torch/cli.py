@@ -1,11 +1,12 @@
-"""The command line: the reference test program's tables, a render
-and an inverse-rendering fit.
+"""The command line: the reference test program's tables, a render,
+an inverse-rendering fit, the terminal viewer and the browser server.
 
-PyTorch counterpart of blackhole_tpu.cli's tests, render and fit
-commands.  Every command runs on the card unless --device names another
-device (--device cpu runs the kernels' plain versions on the CPU).
+PyTorch counterpart of blackhole_tpu.cli.  Every command runs on the
+card unless --device names another device (--device cpu runs the
+kernels' plain versions on the CPU).
 
-Run: python -m blackhole_tpu_torch.cli [tests|render|fit] [--device D]
+Run: python -m blackhole_tpu_torch.cli [tests|render|fit|view|serve]
+     [--device D]
 """
 
 from __future__ import annotations
@@ -220,6 +221,42 @@ def run_fit(args):
     )
 
 
+def run_view(args):
+    """The interactive refining terminal viewer (viz.viewer)."""
+    from blackhole_tpu_torch.viz import viewer
+
+    state = viewer.ViewerState(
+        mass=args.mass, spin=args.spin, fov=args.fov,
+        distance=args.dist, steps=args.steps, device=args.device,
+    )
+    stats = viewer.run(
+        state, width=args.width, height=args.height,
+        max_frames=args.frames,
+        commands=args.script.split(";") if args.script else None,
+        draw=not args.headless,
+    )
+    if args.headless:
+        print(
+            f"viewer: {stats['frames']} frames, {stats['resets']} resets, "
+            f"tiers {stats['tiers'][:6]}..., "
+            f"median fps {sorted(stats['fps'])[len(stats['fps']) // 2]:.2f}"
+        )
+
+
+def run_serve(args):
+    """The browser front end (viz.server)."""
+    from blackhole_tpu_torch.viz import server, viewer
+
+    state = viewer.ViewerState(
+        mass=args.mass, spin=args.spin, fov=args.fov,
+        distance=args.dist, steps=args.steps, device=args.device,
+    )
+    server.serve(
+        host=args.host, port=args.port, state=state,
+        width=args.width, height=args.height,
+    )
+
+
 def main(argv=None):
     help_device = "torch device to run on (default: cuda)"
     parser = argparse.ArgumentParser(prog="blackhole_tpu_torch",
@@ -233,6 +270,21 @@ def main(argv=None):
     sub = parser.add_subparsers(dest="cmd")
     sub.add_parser("tests", parents=[device],
                    help="run the test program's tables")
+    pv = sub.add_parser("view", parents=[device],
+                        help="interactive refining terminal viewer")
+    pv.add_argument("--width", type=int, default=128)
+    pv.add_argument("--height", type=int, default=72)
+    pv.add_argument("--mass", type=float, default=1.0)
+    pv.add_argument("--spin", type=float, default=0.5)
+    pv.add_argument("--fov", type=float, default=22.0)
+    pv.add_argument("--dist", type=float, default=35.0)
+    pv.add_argument("--steps", type=int, default=400)
+    pv.add_argument("--frames", type=int, default=None,
+                    help="stop after N frames (default: run until quit)")
+    pv.add_argument("--script", type=str, default=None,
+                    help="';'-separated commands consumed one per frame")
+    pv.add_argument("--headless", action="store_true",
+                    help="no terminal drawing; print stats at the end")
     pr = sub.add_parser("render", parents=[device], help="render an image")
     pr.add_argument("--width", type=int, default=256)
     pr.add_argument("--height", type=int, default=256)
@@ -245,6 +297,20 @@ def main(argv=None):
                     help="lensed starfield env map instead of the "
                          "gradient sky")
     pr.add_argument("--out", type=str, default="render.png")
+    ps = sub.add_parser(
+        "serve", parents=[device],
+        help="interactive browser viewer (progressive PNG streaming and "
+             "parameter controls)",
+    )
+    ps.add_argument("--host", type=str, default="127.0.0.1")
+    ps.add_argument("--port", type=int, default=8000)
+    ps.add_argument("--width", type=int, default=480)
+    ps.add_argument("--height", type=int, default=270)
+    ps.add_argument("--mass", type=float, default=1.0)
+    ps.add_argument("--spin", type=float, default=0.5)
+    ps.add_argument("--fov", type=float, default=22.0)
+    ps.add_argument("--dist", type=float, default=35.0)
+    ps.add_argument("--steps", type=int, default=400)
     pf = sub.add_parser(
         "fit", parents=[device],
         help="inverse rendering: recover mass/spin from an image"
@@ -262,6 +328,10 @@ def main(argv=None):
         run_render(args)
     elif args.cmd == "fit":
         run_fit(args)
+    elif args.cmd == "view":
+        run_view(args)
+    elif args.cmd == "serve":
+        run_serve(args)
     return 0
 
 

@@ -18,9 +18,13 @@ def to_uint8(img) -> np.ndarray:
     return np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
 
 
-def write_png(path: str, img) -> None:
-    """Minimal RGB8 PNG encoder (no external deps)."""
-    arr = to_uint8(img)
+def encode_png(img) -> bytes:
+    """Minimal RGB8 PNG encoder (zlib only, no PIL): one IDAT, filter 0,
+    zlib level 6.  img: (H, W, 3) uint8 as it is, or float [0, 1]
+    through to_uint8."""
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        arr = to_uint8(arr)
     h, w, _ = arr.shape
     raw = b"".join(
         b"\x00" + arr[y].tobytes() for y in range(h)
@@ -35,12 +39,17 @@ def write_png(path: str, img) -> None:
         )
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    png = (
+    return (
         b"\x89PNG\r\n\x1a\n"
         + chunk(b"IHDR", ihdr)
         + chunk(b"IDAT", zlib.compress(raw, 6))
         + chunk(b"IEND", b"")
     )
+
+
+def write_png(path: str, img) -> None:
+    """Write img as an RGB8 PNG (encode_png)."""
+    png = encode_png(img)
     with open(path, "wb") as f:
         f.write(png)
 

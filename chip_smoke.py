@@ -145,7 +145,29 @@ Phases (each raises on failure; nothing is caught):
      both sides listed and excluded); (d) `python -m
      blackhole_tpu_torch.cli tests` (its ray table equal to (a)'s) and
      `cli render` at 256x256 as two subprocesses started together, each
-     timed from its start to its exit.
+     timed from its start to its exit;
+  18. the front ends on the card (viz.server, render.adaptive,
+     viz.animate, cli view): (a) a served session at the reference
+     window's 1280x720 (ViewerState spin 0.9, 400 steps, the default 32
+     accumulation frames): `/` (the page), /state polled to full+8,
+     `el =25` restarting the ladder at 1/32, `particles on` to full+2,
+     /frame.png decoded, stop() and the render thread joined; gates: the
+     first accumulation frame bit for bit trace_rays_fast of the same
+     rays in raster order, the PNG decoding to the published frame's
+     uint8, no stored error, K1 launched by every published frame; ms
+     per frame by tier (min, median, max) split into trace, accumulate,
+     particles, readback and PNG encode (CUDA events on the device
+     part), requests answered, the time from the command to its first
+     1/32 frame; (b) render_adaptive of the bench scene at 1024x1024
+     (RK4, 1000 steps, base 1 + 4 extra samples on 1/8 of the pixels),
+     its selection equal to the CPU's from the same edge map, and the
+     first refinement pass on every ADAPTIVE_SAMPLE-th selected pixel, K1
+     against its plain version under the RK4 contract; ms, launches,
+     rays; (c) render_orbit_animation, 4 frames at 256x256, read back
+     equal to their renders, the writer used (native or Python) and ms
+     per frame; (d) `cli view --headless --frames 8` at 128x72, a
+     subprocess started beside 17d's and waited for before (a), printing
+     its stats line.
 The CPU's shares of phases 15 and 16 (cpu_references) run in one
 spawned worker process from the end of phase 2 on, beside the card's
 phases, and the worker is stopped before the script returns.
@@ -408,6 +430,64 @@ def parity_stats(hit_k, hit_p, exact, gate=True):
         ok = (stats["result_mismatch"] <= max(1, n // 500)
               and stats["color_mean"] < 2e-3 and stats["color_p99"] < 3e-2)
     check(ok or not gate, f"kernel disagrees with plain: {stats}")
+    return stats
+
+
+# A ray whose plain colour itself moves by at least 1/ILL_RATIO of its
+# kernel-vs-plain gap when one component of its direction moves by one
+# ulp is ill-conditioned in float32: the kernel's rounding (FMA
+# contraction, rsqrt) perturbs it by as much.  On the served tiers, whose
+# time step is 8-20x coarser, such rays exist at 1/4000 (NVIDIA H100
+# 80GB HBM3, 700 W: one ray of the 1/2 tier's 3,600, gap 7.7e-3 against
+# a one-ulp move of 8.0e-3; one of the 1/8 tier's 900, 2.0e-4 against
+# 1.5e-4).
+ILL_RATIO = 4.0
+
+
+def ulp_sensitivity(o, d, scene):
+    """Per ray, the most its plain colour moves when one component of its
+    direction moves by one ulp (up)."""
+    import torch
+
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    def plain(dd):
+        scal, inp = tk.prepare(o, dd, scene)
+        planes = tk.trace_planes_plain(scal, inp, *tk.planes_args(scene))
+        return shade(planes, o, dd, scene, inp[5]).color
+
+    base = plain(d)
+    moves = []
+    for comp in range(3):
+        dd = d.clone()
+        dd[:, comp] = torch.nextafter(dd[:, comp],
+                                      torch.full_like(dd[:, comp], 1e30))
+        moves.append((plain(dd) - base).abs().amax(-1))
+    return torch.stack(moves).amax(0)
+
+
+def conditioned_parity(o, d, scene):
+    """The RK4 contract of K1 against its plain version on the rays (o, d),
+    with ill-conditioned rays set apart: result codes equal on every ray;
+    colour max < 2e-4 over the agreeing non-MAX_STEPS rays, apart from at
+    most max(1, n / 500) rays whose gap is at most ILL_RATIO times their
+    own one-ulp sensitivity (ulp_sensitivity).  Returns the stats."""
+    from blackhole_tpu_torch.geom.types import RayResult
+
+    hit_k, hit_p = kernel_and_plain(o, d, scene)
+    stats = parity_stats(hit_k, hit_p, exact=True, gate=False)
+    gap = (hit_k.color - hit_p.color).abs().amax(-1)
+    over = ((gap >= 2e-4) & (hit_k.result == hit_p.result)
+            & (hit_p.result != RayResult.MAX_STEPS)).nonzero().flatten()
+    sens = ulp_sensitivity(o[over], d[over], scene)
+    stats["rays_over_2e-4"] = [
+        {"ray": int(i), "gap": float(gap[i]), "one_ulp": float(m)}
+        for i, m in zip(over.tolist(), sens.tolist())]
+    n = o.shape[0]
+    check(stats["result_mismatch"] == 0
+          and len(stats["rays_over_2e-4"]) <= max(1, n // 500)
+          and bool((gap[over] <= ILL_RATIO * sens).all()),
+          f"kernel disagrees with plain: {stats}")
     return stats
 
 
@@ -2062,6 +2142,314 @@ def check_cli(api_hits):
             "render_mean": float(img.mean())}
 
 
+# Phase 18: the front ends on the card.  The served session runs the
+# reference window's 1280x720 on the bench black hole (Kerr a=0.9) at
+# the viewer's 400 steps; the adaptive render the bench scene at 1024^2.
+SERVED = dict(width=1280, height=720, steps=400, spin=0.9)
+ADAPTIVE_SAMPLE = 64  # the plain version traces every 64th refined ray
+SERVED_SAMPLE = 64  # ... and every 64th ray of a served frame or tier
+
+
+def _http(port, path, data=None):
+    """(status, body) of one request to the server on localhost."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="POST" if data is not None else "GET")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.read()
+
+
+def _tier_at_least(tier, label):
+    """Whether the served tier has reached `label` (full+n: n or more)."""
+    if not tier.startswith("full+"):
+        return False
+    return int(tier[5:]) >= int(label[5:])
+
+
+def _poll_state(port, done, answered, timeout=300.0):
+    """Poll /state until done(state); returns that state."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        status, body = _http(port, "/state")
+        answered.append(status)
+        state = json.loads(body)
+        if done(state):
+            return state
+        check(time.perf_counter() < deadline and "render error" not in
+              state["status"], f"/state stuck at {state}")
+        time.sleep(0.01)
+
+
+def _split(records):
+    """{stage: (min, median, max) ms} over timing records."""
+    out = {}
+    for key in ("frame_ms", "trace_ms", "accumulate_ms", "particles_ms",
+                "readback_ms", "encode_ms"):
+        vals = sorted(r[key] for r in records if key in r)
+        if vals:
+            out[key] = (round(vals[0], 3), round(statistics.median(vals), 3),
+                        round(vals[-1], 3))
+    return out
+
+
+def check_served_session(dev, width=SERVED["width"], height=SERVED["height"],
+                         steps=SERVED["steps"]):
+    """Phase 18a: viz.server.serve(port=0, block=False) at width x height
+    with ViewerState(spin 0.9, steps) on dev, driven over HTTP: `/`
+    (JAX's page), /state polled to full+8, `el =25` restarting the
+    ladder at 1/32, `particles on` to full+2, /frame.png decoded, then
+    stop() and the render thread joined.  Gates: the first accumulation
+    frame (jitter 0) bit for bit trace_rays_fast of the same rays in
+    raster order; K1 against its plain version on the served rays
+    (served_k1); the PNG decoding to the published frame's uint8
+    (clip(255 x), truncated); no stored error; every published frame
+    launched K1.  Returns (stats, K1 launches)."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import image, trace_kernel
+    from blackhole_tpu_torch.utils import profiling
+    from blackhole_tpu_torch.viz import io as viz_io
+    from blackhole_tpu_torch.viz import server, viewer
+
+    frames = {"launches": [], "recent": collections.deque(maxlen=8)}
+    publish = server.RenderServer._publish
+
+    def record(self, frame, tier, *args):
+        # The K1 launches since the previous publish: the frame's own.
+        launched = trace_kernel.launches - sum(frames["launches"])
+        if tier == "full+1" and "first_full" not in frames:
+            frames["first_full"] = frame.clone()
+        publish(self, frame, tier, *args)
+        frames["launches"].append(launched)
+        frames["recent"].append((self._png, frame.clone()))
+
+    answered = []
+    state = viewer.ViewerState(spin=SERVED["spin"], steps=steps, device=dev)
+    server.RenderServer._publish = record
+    profiling.synchronize()
+    trace_kernel.launches = 0
+    t0 = time.perf_counter()
+    httpd = None
+    try:
+        httpd, rt = server.serve(port=0, state=state, width=width,
+                                 height=height, block=False)
+        rs, port = httpd.render_server, httpd.server_address[1]
+        status, page = _http(port, "/")
+        answered.append(status)
+        check(page == server._PAGE.encode(), "/ is not the page")
+        _poll_state(port, lambda s: _tier_at_least(s["tier"], "full+8"),
+                    answered)
+        t_full8 = time.perf_counter() - t0
+        t_cmd = time.perf_counter()
+        status, body = _http(port, "/cmd", b"el =25")
+        answered.append(status)
+        check(json.loads(body)["action"] == "changed", f"el =25: {body}")
+        seq_cmd = rs.frame()[1]
+        _poll_state(port, lambda s: s["tier"] == "1/32"
+                    and s["seq"] > seq_cmd, answered)
+        restart = next(r for r in rs.frame_timings()
+                       if r["seq"] > seq_cmd and r["tier"] == "1/32")
+        check(restart["seq"] <= seq_cmd + 2, f"the ladder restarted at seq "
+              f"{restart['seq']}, {seq_cmd} when the command returned")
+        status, body = _http(port, "/cmd", b"particles on")
+        answered.append(status)
+        check(json.loads(body)["action"] == "changed", f"particles: {body}")
+        seq_p = rs.frame()[1]
+        _poll_state(port, lambda s: s["seq"] > seq_p and s["particles"]
+                    and _tier_at_least(s["tier"], "full+2"), answered)
+        status, png = _http(port, "/frame.png")
+        answered.append(status)
+    finally:
+        if httpd is not None:
+            httpd.render_server.stop()
+            httpd.render_thread.join(timeout=120)
+            httpd.shutdown()
+            httpd.server_close()
+        server.RenderServer._publish = publish
+    check(not rt.is_alive(), "the render thread did not stop")
+    check(rs.error is None, f"the render thread failed: {rs.error!r}")
+    launches = trace_kernel.launches
+    timings = rs.frame_timings()
+    check(len(frames["launches"]) == len(timings) and
+          min(frames["launches"]) >= 1, f"K1 launches per served frame: "
+          f"{frames['launches']}")
+    # The published frame's uint8, as the JAX server makes it.
+    frame = next(f for p, f in frames["recent"] if p == png)
+    u8 = np.clip(frame.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+    path = ROOT / "build" / "chip_smoke_served.png"
+    path.parent.mkdir(exist_ok=True)
+    path.write_bytes(png)
+    decoded = np.round(viz_io.read_image(str(path)) * 255.0).astype(np.uint8)
+    check(np.array_equal(decoded, u8), "/frame.png does not decode to the "
+          "published frame's uint8")
+    # The first accumulation frame against trace_rays_fast, raster order.
+    ref_state = viewer.ViewerState(spin=SERVED["spin"], steps=steps,
+                                   device=dev)
+    ox, oy = cam.jitter_offsets(0, 32)
+    o, d = cam.generate_rays(ref_state.camera(), width, height, ox, oy)
+    ref = image.trace_rays_fast(o.reshape(-1, 3), d.reshape(-1, 3),
+                                ref_state.scene()).color
+    got = frames["first_full"]
+    check(torch.equal(got, ref.reshape(height, width, 3)),
+          f"the first accumulation frame differs from trace_rays_fast in "
+          f"{int((got != ref.reshape(height, width, 3)).sum())} values")
+    parity, k1 = served_k1(ref_state, o.reshape(-1, 3), d.reshape(-1, 3),
+                           width, height)
+    by_tier = collections.defaultdict(list)
+    for r in timings:
+        by_tier["full" if r["tier"].startswith("full") else r["tier"]].append(r)
+    stats = {
+        "size": [width, height], "steps": steps, "frames": len(timings),
+        "requests_answered": len(answered),
+        "requests_ok": sum(s == 200 for s in answered),
+        "to_full+8_s": t_full8,
+        "cmd_to_1/32_ms": 1e3 * (restart["t"] - t_cmd),
+        "png_bytes": len(png),
+        "ms_by_tier (min, median, max)": {k: _split(v)
+                                          for k, v in by_tier.items()},
+        "particles_frames": sum("particles_ms" in r for r in timings),
+        "k1_alone_full_frame": k1,
+        "k1_vs_plain (RK4 contract)": parity,
+    }
+    full_trace = stats["ms_by_tier (min, median, max)"]["full"]["trace_ms"][1]
+    k1["share_of_median_full_trace"] = k1["ms"] / full_trace
+    return stats, launches
+
+
+def served_k1(state, o, d, width, height):
+    """K1 on the served path's rays, after the session (these launches
+    are not counted): every SERVED_SAMPLE-th ray of the jitter-0 full
+    frame (o, d: raster order, the state's step budget) and of the 1/2
+    tier (tier_scene: 50 steps, the time step 8x coarser at 400), and
+    the whole 1/32 tier (20 steps, 20x coarser), each against the plain
+    version under the RK4 contract with ill-conditioned rays set apart
+    (conditioned_parity); and K1 alone on the whole full
+    frame, CUDA-event ms (median of 3) beside its bound.  Returns
+    ({case: parity stats}, K1 timing)."""
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import trace_kernel as tk
+    from blackhole_tpu_torch.viz import animate
+
+    scene, camera = state.scene(), state.camera()
+    cases = [("full", scene, o[::SERVED_SAMPLE], d[::SERVED_SAMPLE])]
+    for divisor, steps, stride in ((2, 50, SERVED_SAMPLE), (32, 20, 1)):
+        to, td = cam.generate_rays(camera, max(8, width // divisor),
+                                   max(8, height // divisor))
+        cases.append((f"1/{divisor}", animate.tier_scene(scene, steps),
+                      to.reshape(-1, 3)[::stride],
+                      td.reshape(-1, 3)[::stride]))
+    parity = {name: {"max_steps": sc.config.max_steps,
+                     **conditioned_parity(so, sd, sc)}
+              for name, sc, so, sd in cases}
+    scal, inp = tk.prepare(o, d, scene)
+    args = tk.planes_args(scene)
+    planes, ms = _kernel_ms(lambda: tk.trace_planes(scal, inp, *args))
+    bound, by, _ = bound_ms(0, args[2], planes[2], o.shape[0], args[3])
+    return parity, {"rays": o.shape[0], "ms": ms, "bound_ms": bound,
+                    "bound_by": by}
+
+
+def check_adaptive(dev, size=1024):
+    """Phase 18b: render.adaptive.render_adaptive of the bench scene at
+    size^2 (RK4, 1000 steps; base_spp 1, extra_spp 4, edge_fraction
+    0.125), timed to a synchronise, K1 launches counted.  Gates: a finite
+    image; the card's selection (select_pixels) equal to the CPU's from
+    the same edge map; the first refinement pass's rays of every
+    ADAPTIVE_SAMPLE-th selected pixel, K1 against its plain version,
+    under the RK4 contract.  Returns (stats, K1 launches)."""
+    import torch
+
+    from blackhole_tpu_torch.render import adaptive
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import trace_kernel
+    from blackhole_tpu_torch.utils import profiling
+
+    scene, camera = bench_scene(dev)
+    adaptive.render_adaptive(scene, camera, 64, 64)  # warm-up
+    profiling.synchronize()
+    trace_kernel.launches = 0
+    t0 = time.perf_counter()
+    img, edges = adaptive.render_adaptive(scene, camera, size, size)
+    profiling.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = trace_kernel.launches
+    check(img.shape == (size, size, 3) and bool(torch.isfinite(img).all()),
+          f"adaptive image {tuple(img.shape)} is not finite")
+    k = max(1, int(round(0.125 * size * size)))
+    idx = adaptive.select_pixels(edges, k)
+    cpu_idx = adaptive.select_pixels(edges.cpu(), k)
+    check(torch.equal(idx.cpu(), cpu_idx), "the card's top-k selection "
+          "differs from the CPU's on the same edge map")
+    pick = idx[::ADAPTIVE_SAMPLE]
+    ox, oy = cam.jitter_offsets(1, 5)
+    o, d = cam.generate_rays_for_pixels(camera, size, size, pick % size,
+                                        pick // size, ox, oy)
+    hit_k, hit_p = kernel_and_plain(o, d, scene)
+    parity = parity_stats(hit_k, hit_p, exact=True)
+    return {"size": size, "ms": 1e3 * seconds, "launches": launches,
+            "rays": size * size + 4 * k, "selected": k,
+            "edge_ones": int((edges == 1.0).sum()),
+            "sample_parity": parity}, launches
+
+
+def check_orbit(dev, size=256, n_frames=4):
+    """Phase 18c: viz.animate.render_orbit_animation of the bench scene,
+    n_frames at size^2, into build/chip_smoke_orbit; the frames read back
+    equal to render_image's at each orbit camera (to_uint8).  Returns
+    (stats, K1 launches)."""
+    import shutil
+
+    import numpy as np
+
+    from blackhole_tpu_torch.render import image, trace_kernel
+    from blackhole_tpu_torch.utils import profiling
+    from blackhole_tpu_torch.viz import animate, native_io
+    from blackhole_tpu_torch.viz import io as viz_io
+
+    scene, _ = bench_scene(dev)
+    out = ROOT / "build" / "chip_smoke_orbit"
+    shutil.rmtree(out, ignore_errors=True)
+    writer = "native" if native_io.available() else "python"
+    profiling.synchronize()
+    trace_kernel.launches = 0
+    t0 = time.perf_counter()
+    paths = animate.render_orbit_animation(scene, str(out),
+                                           n_frames=n_frames, width=size,
+                                           height=size)
+    seconds = time.perf_counter() - t0
+    launches = trace_kernel.launches
+    check(len(paths) == n_frames and all(Path(p).is_file() for p in paths),
+          f"orbit frames missing: {paths}")
+    for k, p in enumerate(paths):
+        camera = animate.orbit_camera(35.0, 18.0, 360.0 * k / n_frames, 22.0,
+                                      device=dev)
+        ref = viz_io.to_uint8(image.render_image(scene, camera, size,
+                                                 size).cpu().numpy())
+        back = np.round(viz_io.read_image(p) * 255.0).astype(np.uint8)
+        check(np.array_equal(back, ref), f"orbit frame {k} reads back "
+              f"different from its render")
+    return {"frames": n_frames, "size": size, "writer": writer,
+            "ms_per_frame": 1e3 * seconds / n_frames,
+            "launches": launches}, launches
+
+
+def check_cli_view(proc):
+    """Phase 18d: the `cli view --headless --frames 8 --width 128
+    --height 72` subprocess (started beside phase 17d's): its stats
+    line."""
+    out, seconds = proc
+    line = next((s for s in out.splitlines() if s.startswith("viewer: ")),
+                None)
+    check(line is not None and line.startswith("viewer: 8 frames"),
+          f"cli view printed no stats line: {out[-500:]}")
+    return {"view_s": seconds, "stats": line}
+
+
 _VARIANT = re.compile(r"(trace_kernel|fwdgrad_kernel)I(Li\d+E)?"
                       r"Lb(\d)ELb(\d)ELb(\d)E")
 
@@ -2395,7 +2783,7 @@ def main() -> int:
 
 
 def _main_phases(smi, dev, libs, cpu_ref) -> int:
-    """Phases 3-17 and the last three lines (main's); cpu_ref() returns
+    """Phases 3-18 and the last three lines (main's); cpu_ref() returns
     cpu_references' result."""
     import torch
 
@@ -2572,15 +2960,42 @@ def _main_phases(smi, dev, libs, cpu_ref) -> int:
     print(f"api bench frame 1024^2 rk4 ({smi}): {json.dumps(frame)}")
     for stats in check_particles(dev):
         print(f"api particles ({smi}): {json.dumps(stats)}")
-    print(f"cli ({smi}): {json.dumps(check_cli(api_hits))}")
-    print(f"phase 17: {time.perf_counter() - t17:.1f} s, K1 launches "
-          f"{api_launches}")
+    # Phase 18d's `cli view` starts beside phase 17d's two subprocesses;
+    # it ends before phase 18a starts, so no process of its own shares
+    # the card or the host with the served session's timings.
+    view = _cli("view", "--headless", "--frames", "8", "--width", "128",
+                "--height", "72")
+    try:
+        print(f"cli ({smi}): {json.dumps(check_cli(api_hits))}")
+        print(f"phase 17: {time.perf_counter() - t17:.1f} s, K1 launches "
+              f"{api_launches}")
+
+        print(f"[{time.perf_counter() - T0:.1f} s] phase 18")
+        # 18. The front ends on the card.
+        t18 = time.perf_counter()
+        view_stats = check_cli_view(_cli_done(*view))
+    finally:
+        if view[0].poll() is None:
+            view[0].kill()
+            view[0].wait()
+    served, served_launches = check_served_session(dev)
+    print(f"served session ({smi}): {json.dumps(served)}")
+    adapt, adapt_launches = check_adaptive(dev)
+    print(f"adaptive 1024^2 rk4 ({smi}): {json.dumps(adapt)}")
+    orbit, orbit_launches = check_orbit(dev)
+    print(f"orbit animation ({smi}): {json.dumps(orbit)}")
+    print(f"cli view ({smi}): {json.dumps(view_stats)}")
+    front_launches = served_launches + adapt_launches + orbit_launches
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s, K1 launches "
+          f"{front_launches} (served {served_launches}, adaptive "
+          f"{adapt_launches}, orbit {orbit_launches})")
     print(f"[{time.perf_counter() - T0:.1f} s] done")
 
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "trace_planes", **KERNELS["trace_planes"],
-         "launches": fwd_launches[0] + rev["launches"] + api_launches,
+         "launches": (fwd_launches[0] + rev["launches"] + api_launches
+                      + front_launches),
          "max_abs_err": big["color_max"],
          "ms": ms_k, "plain_ms": ms_p, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},

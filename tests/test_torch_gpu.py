@@ -9,8 +9,10 @@ after one and two steps (the one-step check), depth-sorted traces
 scenes queued on one stream and on two streams each reading its own
 scene scalars from the constant bank, and torch.func.jvp of a trace launching K2 once with one
 tangent (and a second derivative through it raising); and the eager XLA
-engine and reverse mode on the card against the CPU; and the bh_* API's
-five rays and its bench frame (bit for bit trace_rays_fast's).  Run
+engine and reverse mode on the card against the CPU; the bh_* API's
+five rays and its bench frame (bit for bit trace_rays_fast's); and the
+front ends (phase 18 at small sizes: a served session, the adaptive
+render's selection and sample, an orbit animation).  Run
 on a machine with a GPU (and without jax, which the suite's conftest
 imports):
 
@@ -265,3 +267,16 @@ def test_api_on_card(cuda):
     stats = chip_smoke.check_api_frame(cuda, o, d,
                                        image.trace_rays_fast(o, d, scene))
     assert stats["elementwise_mismatch"] == 0 and stats["launches"] == 4
+
+
+def test_front_ends_on_card(cuda):
+    """chip_smoke's phase 18 at small sizes: every served frame launches
+    K1 and the first accumulation frame is trace_rays_fast's; the
+    adaptive selection is the CPU's; the orbit frames read back."""
+    served, launches = chip_smoke.check_served_session(cuda, 128, 72, 60)
+    assert launches >= served["frames"] >= 8
+    adapt, launches = chip_smoke.check_adaptive(cuda, size=64)
+    # 64^2 takes no depth-sort prepass: the base render and 4 passes.
+    assert launches == 5 and adapt["sample_parity"]["result_mismatch"] == 0
+    orbit, launches = chip_smoke.check_orbit(cuda, size=32, n_frames=2)
+    assert launches == 2 and orbit["frames"] == 2

@@ -1,8 +1,9 @@
 """The PyTorch port and chip_smoke.py import neither jax nor the JAX
 package: every import statement of every module (function-level imports
-included), and at run time the XLA engine, reverse mode and fit, and the
-CLI's tests command.  The API's context, like the records, is made on
-the card unless asked for another device."""
+included), and at run time the XLA engine, reverse mode and fit, the
+CLI's tests command, the terminal viewer and the render server.  The
+API's context, like the records, is made on the card unless asked for
+another device."""
 
 import ast
 import os
@@ -90,6 +91,35 @@ def test_cli_tests_run_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines()[-1] == "Tests completed."
+
+
+def test_viewer_and_server_run_without_jax():
+    """viewer.run headless (particles on) and one RenderServer frame on
+    the CPU (the ladder's first tier through render_loop, PNG encoded)
+    leave jax and the JAX package out of sys.modules."""
+    code = (
+        "import sys\n"
+        "from blackhole_tpu_torch.viz import server, viewer\n"
+        "stats = viewer.run(viewer.ViewerState(steps=40, particles=True,\n"
+        "                                      n_particles=16, device='cpu'),\n"
+        "                   width=16, height=8, max_frames=2, commands=[],\n"
+        "                   draw=False)\n"
+        "assert stats['tiers'] == ['1/32', '1/16'], stats\n"
+        "rs = server.RenderServer(viewer.ViewerState(steps=40, device='cpu'),\n"
+        "                         width=16, height=8)\n"
+        "rs.render_loop(max_frames=1)\n"
+        "png, seq, tier = rs.frame()\n"
+        "assert png[:8] == b'\\x89PNG\\r\\n\\x1a\\n' and (seq, tier) == (1, '1/32')\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'blackhole_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_api_context_defaults_to_the_card():
