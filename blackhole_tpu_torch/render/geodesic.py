@@ -258,7 +258,37 @@ def init_null_rays(origin, direction, M, a, Q=0.0):
     jax.jvp); dt/dlambda from the full null condition with the g_tphi
     cross term.  The affine parameter is rescaled so that E = 1.
     Returns (y, E, L, Q) with y (..., 6).
+
+    Under torch.export this is the registered operator
+    blackhole_tpu_torch::init_null_rays, which runs the same code when
+    the program is called: torch.func.jvp's forward-mode rules read
+    concrete sizes, so it cannot be traced with a symbolic ray count.
     """
+    if torch.compiler.is_exporting():
+        return torch.ops.blackhole_tpu_torch.init_null_rays(
+            origin, direction,
+            *(torch.as_tensor(v, device=origin.device) for v in (M, a, Q)))
+    return _init_null_rays(origin, direction, M, a, Q)
+
+
+@torch.library.custom_op("blackhole_tpu_torch::init_null_rays",
+                         mutates_args=())
+def _init_null_rays_op(origin: torch.Tensor, direction: torch.Tensor,
+                       M: torch.Tensor, a: torch.Tensor, Q: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    return _init_null_rays(origin, direction, M, a, Q)
+
+
+@_init_null_rays_op.register_fake
+def _init_null_rays_shape(origin, direction, M, a, Q):
+    dtype = torch.result_type(origin, M)
+    batch = origin.shape[:-1]
+    return (origin.new_empty(batch + (NSTATE,), dtype=dtype),
+            *(origin.new_empty(batch, dtype=dtype) for _ in range(3)))
+
+
+def _init_null_rays(origin, direction, M, a, Q):
     # Nudge rays off the polar axis, where arccos/atan2 are non-smooth:
     # rho/r ~ 2e-3 keeps 1 - z/r above float32's epsilon.
     x, yy = origin[..., 0], origin[..., 1]

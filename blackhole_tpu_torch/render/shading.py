@@ -197,8 +197,11 @@ def shade_disk_hit(hit_pos, photon_dir, blackhole, disk, config, L=None):
     g-factor (photon's conserved L) when the disk is equatorial and L is
     given, and the compat factors otherwise; "compat" always uses the
     flat-space Keplerian factors; "kerr" is auto that logs a warning when
-    an inclined disk forces the compat fallback.  The equatorial test is
-    decided once from the inclination's value.
+    an inclined disk forces the compat fallback.  Eager calls decide the
+    equatorial test once from the inclination's value.  Under
+    torch.export the inclination is a runtime input of the program, so
+    both kinematic paths are computed and torch.where picks per batch,
+    as the JAX package does for a traced inclination.
 
     Returns (rgb, temperature, doppler, grav_redshift).
     """
@@ -210,32 +213,41 @@ def shade_disk_hit(hit_pos, photon_dir, blackhole, disk, config, L=None):
     rgb = temperature_to_rgb(temp)
     mode = config.disk_kinematics
     use_kerr = mode in ("auto", "kerr") and L is not None
-    equatorial = False
-    if use_kerr:
-        equatorial = bool(
-            torch.all(torch.abs(torch.sin(disk.inclination)) < 1e-6)
-        )
-        if mode == "kerr" and not equatorial:
+
+    def kerr_factors():
+        M = blackhole.mass
+        a = blackhole.spin * M
+        # Equatorial BL radius from the cylindrical one (w = sqrt(r^2+a^2)).
+        r_bl = torch.sqrt(jmax(r_cyl * r_cyl - a * a, EPSILON))
+        g = kerr_g_factor(r_bl, L, M, a, blackhole.charge)
+        grav_k = derived.static_time_dilation_kerr(r_bl, M, a,
+                                                   blackhole.charge)
+        return g * grav_k, grav_k
+
+    def compat_factors():
+        doppler_c = doppler_factor_relativistic(hit_pos, photon_dir,
+                                                blackhole.mass)
+        r_sph = torch.linalg.vector_norm(hit_pos, dim=-1)
+        return doppler_c, derived.time_dilation(r_sph, blackhole.mass)
+
+    def equatorial():
+        return torch.abs(torch.sin(disk.inclination)) < 1e-6
+
+    if use_kerr and torch.compiler.is_exporting():
+        doppler_k, grav_k = kerr_factors()
+        doppler_c, grav_c = compat_factors()
+        doppler = torch.where(equatorial(), doppler_k, doppler_c)
+        grav = torch.where(equatorial(), grav_k, grav_c)
+    else:
+        static_eq = use_kerr and bool(torch.all(equatorial()))
+        if use_kerr and mode == "kerr" and not static_eq:
             log.warning(
                 "disk_kinematics='kerr' requested for an inclined disk: "
                 "no circular equatorial geodesics off the equator — "
                 "falling back to the compat (flat-space Keplerian) "
                 "factors for this scene"
             )
-    if use_kerr and equatorial:
-        M = blackhole.mass
-        a = blackhole.spin * M
-        # Equatorial BL radius from the cylindrical one (w = sqrt(r^2+a^2)).
-        r_bl = torch.sqrt(jmax(r_cyl * r_cyl - a * a, EPSILON))
-        g = kerr_g_factor(r_bl, L, M, a, blackhole.charge)
-        grav = derived.static_time_dilation_kerr(r_bl, M, a,
-                                                 blackhole.charge)
-        doppler = g * grav
-    else:
-        doppler = doppler_factor_relativistic(hit_pos, photon_dir,
-                                              blackhole.mass)
-        r_sph = torch.linalg.vector_norm(hit_pos, dim=-1)
-        grav = derived.time_dilation(r_sph, blackhole.mass)
+        doppler, grav = kerr_factors() if static_eq else compat_factors()
     rgb = apply_relativistic_effects(
         rgb, doppler, grav,
         enable_doppler=config.enable_doppler,

@@ -8,7 +8,9 @@ wrappers pick between them by the tensors' device alone: a CUDA tensor
 launches the kernel or raises.
 
   trace_planes (K1, csrc/trace_kernel.cu; plain: trace_planes_plain)
-    replaces _make_kernel: the primal integration.
+    replaces _make_kernel: the primal integration.  It is the registered
+    operator blackhole_tpu_torch::trace_planes, so torch.export records
+    it (export.py).
   trace_planes_fwdgrad (K2, csrc/trace_fwdgrad.cu; plain:
     trace_planes_fwdgrad_plain) replaces _make_kernel_jvp_multi: one
     primal and n forward tangents sharing it.  With n = 1 it replaces
@@ -68,8 +70,9 @@ def n_out(track: bool) -> int:
     return N_OUT_PLANES + (N_TRACK if track else 0)
 
 
-# Kernel launches since the last reset: trace_planes adds one per K1
-# launch, trace_planes_fwdgrad one per K2 launch; the track_ counts add
+# Kernel launches since the last reset: the operator's CUDA kernel
+# (_launch_k1) adds one per K1 launch, whether eager or from an exported
+# program, trace_planes_fwdgrad one per K2 launch; the track_ counts add
 # one more per launch of the tracking variant.
 launches = 0
 fwdgrad_launches = 0
@@ -489,24 +492,15 @@ def trace_planes(scal, inp, disk_enabled: bool, max_steps: int,
                  adaptive: bool, track: bool = False):
     """Integrate every ray of inp (16, n) with scene scalars scal (12,).
 
+    Calls the registered operator blackhole_tpu_torch::trace_planes:
     CPU tensors go through trace_planes_plain; CUDA tensors launch the
     hand-written kernel (csrc/trace_kernel.cu, its tracking variant
-    under track) on the current stream or raise.  Returns out
-    (n_out(track), n) float32."""
-    global launches, track_launches
+    under track) on the current stream or raise.  torch.export records
+    the operator itself.  Returns out (n_out(track), n) float32."""
     _check_planes(scal, inp, disk_enabled, track)
-    if inp.device.type == "cpu":
-        return trace_planes_plain(scal, inp, disk_enabled, max_steps,
-                                  adaptive, track)
-    n = inp.shape[1]
-    if n == 0:
-        return torch.empty((n_out(track), 0), dtype=torch.float32,
-                           device=inp.device)
-    out = _Launch.apply(_launch_k1, scal, inp, disk_enabled, max_steps,
-                        adaptive, track)
-    launches += 1
-    track_launches += int(track)
-    return out
+    return _Launch.apply(torch.ops.blackhole_tpu_torch.trace_planes, scal,
+                         inp, bool(disk_enabled), int(max_steps),
+                         bool(adaptive), bool(track))
 
 
 def trace_planes_fwdgrad(scal, dscals, inp, dinps, disk_enabled: bool,
@@ -595,17 +589,39 @@ class _Launch(torch.autograd.Function):
         )
 
 
-def _launch_k1(scal, inp, disk_enabled, max_steps, adaptive, track):
+@torch.library.custom_op("blackhole_tpu_torch::trace_planes", mutates_args=(),
+                         device_types="cpu")
+def _planes_op(scal: torch.Tensor, inp: torch.Tensor, disk_on: bool,
+               max_steps: int, adaptive: bool, track: bool) -> torch.Tensor:
+    """K1 as an operator: on the CPU, its plain version."""
+    return trace_planes_plain(scal, inp, disk_on, max_steps, adaptive, track)
+
+
+@_planes_op.register_kernel("cuda")
+def _launch_k1(scal, inp, disk_on, max_steps, adaptive, track):
+    """K1 as an operator on the card: one launch on the current stream
+    (none for n = 0), counted."""
+    global launches, track_launches
     from blackhole_tpu_torch import cuda_lib
 
     scal, inp = scal.contiguous(), inp.contiguous()
-    out = torch.empty((n_out(track), inp.shape[1]), dtype=torch.float32,
+    n = inp.shape[1]
+    out = torch.empty((n_out(track), n), dtype=torch.float32,
                       device=inp.device)
+    if n == 0:
+        return out
     with torch.cuda.device(inp.device):
-        cuda_lib.trace_planes(scal, inp, out, inp.shape[1], max_steps,
-                              disk_enabled, adaptive, track,
+        cuda_lib.trace_planes(scal, inp, out, n, max_steps, disk_on,
+                              adaptive, track,
                               torch.cuda.current_stream().cuda_stream)
+    launches += 1
+    track_launches += int(track)
     return out
+
+
+@_planes_op.register_fake
+def _planes_shape(scal, inp, disk_on, max_steps, adaptive, track):
+    return inp.new_empty((n_out(track), inp.shape[1]))
 
 
 def _launch_k2(scal, dscals, inp, dinps, disk_enabled, max_steps, adaptive,

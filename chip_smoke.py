@@ -103,8 +103,9 @@ Phases (each raises on failure; nothing is caught):
      synchronisation per step) on the card: trace_rays_fast(engine="xla")
      of the bench scene at 1024x1024 RK4 and 512x512 RKF45 against K1 on
      the same rays under the distribution contract, the result codes
-     that differ and both engines' times (median of 3 after a warm-up,
-     min and max); LEAPFROG and YOSHIDA at the 64x64 parity case against
+     that differ and both engines' times (the XLA engine: its one gated
+     pass; K1: median of 3 after a warm-up, min and max); LEAPFROG and
+     YOSHIDA at the 64x64 parity case against
      the same call on the CPU under the RK4 contract;
   14. reverse mode against finite differences, float64 on the card:
      d(mean image)/d(mass) and d/d(spin) of grad.diff_trace.
@@ -124,7 +125,7 @@ Phases (each raises on failure; nothing is caught):
      must fail;
   16. grad.inverse.fit: the JAX package's test case (16x16, 150 steps,
      float64, 25 Adam steps from mass 1.15 at rate 2e-2) halves the loss
-     and keeps the frozen spin bit for bit, on the CPU; 3 steps at
+     and keeps the frozen spin bit for bit, on the CPU; 2 steps at
      256x256 (float32) on the card, ms per step.
   17. the bh_* API, the particle simulator and the CLI on the card:
      (a) the five canonical rays of the CLI's tests (main.c's scene)
@@ -167,10 +168,34 @@ Phases (each raises on failure; nothing is caught):
      equal to their renders, the writer used (native or Python) and ms
      per frame; (d) `cli view --headless --frames 8` at 128x72, a
      subprocess started beside 17d's and waited for before (a), printing
-     its stats line.
+     its stats line;
+  19. the last slice on the card (phase19): (a) a world of one rank over
+     NCCL in this process: render_image_sharded of the bench frame
+     (kernel engine, depth-sorted) bit for bit phase 7's render_image,
+     its ms (median of 3) and K1 launches; loss_and_grad_sharded of
+     SHARDED_GRAD's case (bench_scaling's 256x256, 128 steps, budget 60)
+     against the single-process image_loss backward within
+     SHARDED_GRAD_TOL, both timed; (b) world2_job on 2 gloo ranks
+     sharing the card (their collectives staged through the host): the
+     gathered frame bit for bit (a)'s, one make_train_step_sharded step
+     whose gradients are (a)'s within SHARDED_GRAD_TOL, the dry run's
+     legs (entry.dryrun_legs, what dryrun_multichip(2) runs; its summary
+     line), per-rank times; (c) export_trace of the bench scene with a
+     symbolic ray count on the 1024x1024 rays against phase 7's
+     trace_rays_fast under the RK4 colour contract (values differing
+     bitwise counted, one K1 launch a call), export_render at 256x256
+     the same and following a moved camera, export and call times; (d)
+     the examples: render_kerr, lensed_starfield (512x512) and
+     inverse_fit --method forward (K2) at their defaults in this
+     process, inverse_fit --method reverse --fit-steps 2 and
+     distributed_render at world 1 as subprocesses started after (a),
+     each timed.
 The CPU's shares of phases 15 and 16 (cpu_references) run in one
 spawned worker process from the end of phase 2 on, beside the card's
-phases, and the worker is stopped before the script returns.
+phases, and phase 8's two plain K2 passes at the main path's shapes
+(plain_main_shapes) in two more on the card, beside phases 3-6 (phase 7
+waits for them, so no timing of phase 7 on overlaps them); the workers
+are stopped before the script returns.
 Every phase prints its start time.  The last three lines are the card,
 one JSON object about the kernels and one JSON object with "ok" and the
 device.  Exits non-zero without a result when no GPU is present or the
@@ -1208,14 +1233,47 @@ def time_fwdgrad(o, d, scene, tangents):
         *planes_in, *args))
 
 
-def check_fwdgrad_main_shapes(o, d, scene, scene45, k1_planes, k1_ms):
+def plain_main_shapes(integrator):
+    """The plain K2 passes phase 8 holds K2 to at the main path's shapes,
+    run in a worker process on the card beside phases 3-6 (the plain
+    versions are bound by their per-step launches, so the two passes and
+    those phases' plain passes overlap): "rk4", the plain tracking pass
+    (plain_tracking, 2 tangents) on every PLAIN_SAMPLE-th ray of the
+    bench frame; "rkf45", the plain K2 on every RKF45_SAMPLE-th ray of
+    its RKF45 variant.  The inputs are made here as phase 8 makes them
+    (the same calls on the same card give the same bits).  Returns the
+    planes on the host and their CUDA-event ms."""
+    import torch
+
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import trace_kernel as tk
+
+    dev = torch.device("cuda", 0)
+    scene, camera = bench_scene(dev, integrator)
+    o, d = cam.generate_rays(camera, 1024, 1024)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    tangents = mass_spin_tangents(scene)
+    if integrator == "rk4":
+        pick = slice(None, None, PLAIN_SAMPLE)
+        (planes,), ms = plain_tracking([(o[pick], d[pick], scene, tangents)])
+    else:
+        pick = slice(None, None, RKF45_SAMPLE)
+        (scal, dscals, inp, dinps), _ = tk.prepare_fwdgrad(o, d, scene,
+                                                           tangents)
+        planes, ms = _cuda_ms(lambda: tk.trace_planes_fwdgrad_plain(
+            scal, dscals, inp[:, pick].contiguous(),
+            dinps[:, :, pick].contiguous(), *tk.planes_args(scene)))
+    return tuple(t.cpu() for t in planes), ms
+
+
+def check_fwdgrad_main_shapes(o, d, scene, scene45, k1_planes, k1_ms,
+                              plains):
     """Phase 8's K2 checks at the main path's shapes, given K1's planes
-    and time for the same rays of `scene`; prints times and bounds and
+    and time for the same rays of `scene` and plain_main_shapes' passes
+    {integrator: (planes, ms)} on the card; prints times and bounds and
     returns K2's row of the kernels line, the plain tracking pass on
     every PLAIN_SAMPLE-th ray (with its ms), which phase 9 reuses, and
     K2's step-count planes {name: steps} (RK4 and RKF45, raster)."""
-    from blackhole_tpu_torch.render import trace_kernel as tk
-
     n = o.shape[0]
     tangents = mass_spin_tangents(scene)
     pick = slice(None, None, PLAIN_SAMPLE)
@@ -1224,8 +1282,7 @@ def check_fwdgrad_main_shapes(o, d, scene, scene45, k1_planes, k1_ms):
     # version on every PLAIN_SAMPLE-th ray: one tracking pass serves K2
     # with 2 tangents and with 1 here and the tracking kernels in
     # phase 9 (plain_tracking).
-    (planes_s,), ms_s = plain_tracking([(o[pick], d[pick], scene, tangents)])
-    plain_s = (planes_s, ms_s)
+    plain_s = plains["rk4"]
     k2_planes, ms_k2 = time_fwdgrad(o, d, scene, tangents)
     k2_bound = bound_ms(2, False, k2_planes[0][2], n)
     out_k = k2_planes[0]
@@ -1235,7 +1292,8 @@ def check_fwdgrad_main_shapes(o, d, scene, scene45, k1_planes, k1_ms):
           f"plane values")
     print(f"K2 planes 1024^2 rk4 (2 tangents): kernel {ms_k2:.3f} ms "
           f"({ms_k2 / k1_ms:.2f}x K1); plain (tracking, 2 tangents) on every "
-          f"{PLAIN_SAMPLE}th ray {plain_s[1]:.3f} ms")
+          f"{PLAIN_SAMPLE}th ray {plain_s[1]:.3f} ms (in a worker beside "
+          f"phases 3-6)")
     print_bound("K2 1024^2 rk4", ms_k2, k2_bound)
     big2 = fwdgrad_stats(
         sample_hits(o, d, scene, tangents,
@@ -1260,13 +1318,10 @@ def check_fwdgrad_main_shapes(o, d, scene, scene45, k1_planes, k1_ms):
     tangents45 = mass_spin_tangents(scene45)
     k45_planes, ms_k45 = time_fwdgrad(o, d, scene45, tangents45)
     pick45 = slice(None, None, RKF45_SAMPLE)
-    (scal, dscals, inp, dinps), _ = tk.prepare_fwdgrad(o, d, scene45,
-                                                       tangents45)
-    p45, ms_p45 = _cuda_ms(lambda: tk.trace_planes_fwdgrad_plain(
-        scal, dscals, inp[:, pick45].contiguous(),
-        dinps[:, :, pick45].contiguous(), *tk.planes_args(scene45)))
+    p45, ms_p45 = plains["rkf45"]
     print(f"K2 planes 1024^2 rkf45 (2 tangents): kernel {ms_k45:.3f} ms; "
-          f"plain on every {RKF45_SAMPLE}th ray {ms_p45:.3f} ms")
+          f"plain on every {RKF45_SAMPLE}th ray {ms_p45:.3f} ms (in a "
+          f"worker beside phases 3-6)")
     print_bound("K2 1024^2 rkf45", ms_k45,
                 bound_ms(2, True, k45_planes[0][2], n))
     big45 = fwdgrad_stats(
@@ -1285,18 +1340,25 @@ def check_fwdgrad_main_shapes(o, d, scene, scene45, k1_planes, k1_ms):
                           "K2 n=2 rkf45": k45_planes[0][2]}
 
 
-def _timed(fn, repeats=3):
-    """Wall seconds of fn() to a synchronise: one warm-up, then repeats."""
+def _sync():
+    """Wait for the card (nothing to wait for on a CPU rehearsal)."""
     import torch
 
-    times = []
-    for _ in range(1 + repeats):
+    if torch.cuda.is_available():
         torch.cuda.synchronize()
+
+
+def _timed(fn, repeats=3, warmup=True):
+    """Wall seconds of fn() to a synchronise: one warm-up (unless
+    warmup=False), then repeats."""
+    times = []
+    for _ in range(int(warmup) + repeats):
+        _sync()
         t0 = time.perf_counter()
         res = fn()
-        torch.cuda.synchronize()
+        _sync()
         times.append(time.perf_counter() - t0)
-    return res, times[1:]
+    return res, times[int(warmup):]
 
 
 def loss_of_hit(h):
@@ -1558,7 +1620,8 @@ def check_xla_engine(dev, camera, scene, scene45):
     """Phase 13: the XLA engine (trace.trace_rays, eager torch) on the
     card against K1 on the same rays: the bench scene at 1024x1024 RK4
     and 512x512 RKF45 under the distribution contract (parity_stats),
-    each engine timed by host clock after a synchronise (median of 3
+    each engine timed by host clock after a synchronise (the XLA engine:
+    its one gated pass, which has no compile to warm; K1: median of 3
     after a warm-up, min and max); then LEAPFROG and YOSHIDA, which only
     the XLA engine runs, at the 64x64 parity case on the card against the
     same call on the CPU under the RK4 contract."""
@@ -1572,7 +1635,8 @@ def check_xla_engine(dev, camera, scene, scene45):
         o, d = cam.generate_rays(camera, size, size)
         o, d = o.reshape(-1, 3), d.reshape(-1, 3)
         hit_x, t_x = _timed(lambda: image.trace_rays_fast(o, d, sc,
-                                                          engine="xla"))
+                                                          engine="xla"),
+                            repeats=1, warmup=False)
         hit_k, t_k = _timed(lambda: image.trace_rays_fast(o, d, sc))
         stats = parity_stats(hit_x, hit_k, exact=False)
         n = o.shape[0]
@@ -1876,7 +1940,7 @@ def check_reverse_path(dev, scene, o, d, k1_ms, fwd_grads, cpu_ref):
             "planted": planted}
 
 
-def check_reverse_fit(dev, cpu_ref, size=256, steps=3):
+def check_reverse_fit(dev, cpu_ref, size=256, steps=2):
     """Phase 16: grad.inverse.fit.  The JAX package's test case (from
     cpu_references, run on the CPU) must halve its loss and keep the
     frozen spin bit for bit; on the card, `steps` Adam steps at size x
@@ -2083,23 +2147,28 @@ def check_particles(dev):
     return out
 
 
-def _cli(*args):
-    """Start python -m blackhole_tpu_torch.cli with args from the
-    checkout's root; returns (process, start time)."""
+def _python_m(module, *args):
+    """Start python -m <module> with args from the checkout's root;
+    returns (process, start time)."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     return subprocess.Popen(
-        [sys.executable, "-m", "blackhole_tpu_torch.cli", *args], cwd=ROOT,
+        [sys.executable, "-m", module, *args], cwd=ROOT,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True), time.perf_counter()
 
 
+def _cli(*args):
+    """Start python -m blackhole_tpu_torch.cli with args (_python_m)."""
+    return _python_m("blackhole_tpu_torch.cli", *args)
+
+
 def _cli_done(proc, t0, timeout=600):
-    """(stdout, wall seconds since t0) of a _cli process; fails unless it
-    exits 0."""
+    """(stdout, wall seconds since t0) of a _python_m process; fails
+    unless it exits 0."""
     out, err = proc.communicate(timeout=timeout)
-    check(proc.returncode == 0, f"cli {' '.join(proc.args[3:])} exited "
+    check(proc.returncode == 0, f"{' '.join(proc.args[2:])} exited "
           f"{proc.returncode}: {err[-2000:]}")
     return out, time.perf_counter() - t0
 
@@ -2450,6 +2519,369 @@ def check_cli_view(proc):
     return {"view_s": seconds, "stats": line}
 
 
+# Phase 19's gradient case: bench_scaling's fwd+bwd (256x256, 128 steps,
+# path budget 60), the loss taken at log(mass) + 0.05 from a target at
+# mass 1.  Sharded gradients are held to others within the JAX package's
+# bar for its sharded gradients (tests/test_parallel.py: rtol 1e-4, atol
+# 1e-7): the per-ray cotangent guard sees the sum's cotangents, n x the
+# mean's, so it can clip other rays than a single-process mean does.
+SHARDED_GRAD = dict(width=256, height=256, steps=128, log_mass_step=0.05)
+SHARDED_GRAD_TOL = (1e-4, 1e-7)
+
+
+def sharded_grad_case(dev, grad=SHARDED_GRAD):
+    """(scene, camera, params) of phase 19's gradient case."""
+    from blackhole_tpu_torch.grad import inverse
+    from blackhole_tpu_torch.parallel import scaling
+
+    scene = scaling._make_scene(0, grad["steps"], dev)
+    camera = scaling._camera(dev)
+    params = inverse.pack_params(scene, camera)
+    params["log_mass"] = params["log_mass"] + grad["log_mass_step"]
+    return scene, camera, params
+
+
+def _grads_gap(got, want, tol=SHARDED_GRAD_TOL):
+    """Largest |got - want| / (atol + rtol |want|) over a dict of
+    gradients (the loss under "loss"): at most 1 where every value is
+    within (rtol, atol) = tol."""
+    rtol, atol = tol
+    return max(float(((got[k].cpu().double() - want[k].cpu().double()).abs()
+                      / (atol + rtol * want[k].cpu().double().abs())).max())
+               for k in want)
+
+
+def check_sharded_world1(dev, scene, camera, img_ref, size=1024,
+                         grad=SHARDED_GRAD):
+    """Phase 19a: a world of one rank over NCCL in this process.  The
+    bench frame's render_image_sharded (kernel engine, depth-sorted) bit
+    for bit phase 7's render_image, its ms (median of 3, min, max) and
+    K1 launches; loss_and_grad_sharded of the gradient case against the
+    single-process image_loss backward (within SHARDED_GRAD_TOL), both
+    timed.
+    Returns (stats, the sharded loss and gradients, the target)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from blackhole_tpu_torch.grad import inverse
+    from blackhole_tpu_torch.parallel import mesh as pmesh
+    from blackhole_tpu_torch.render import trace_kernel
+
+    w, h = grad["width"], grad["height"]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        pmesh.initialize_distributed(f"file://{tmp}/store", 1, 0, backend,
+                                     600)
+        try:
+            mesh = pmesh.make_mesh(1, dev)
+            check(mesh.group is not None and dist.get_backend() == backend
+                  and not mesh.host_staged, f"19a is not a {backend} world")
+
+            def frame():
+                return pmesh.render_image_sharded(
+                    scene, camera, size, size, mesh, engine="auto",
+                    depth_sort=True)
+
+            before = trace_kernel.launches
+            img, times = _timed(frame)
+            launches = trace_kernel.launches - before
+            check(torch.equal(img, img_ref),
+                  "the world-1 sharded frame is not bit for bit render_image")
+            gscene, gcamera, params = sharded_grad_case(dev, grad)
+            target = pmesh.render_image_sharded(gscene, gcamera, w, h, mesh)
+            _sync()
+            t0 = time.perf_counter()
+            loss, grads = pmesh.loss_and_grad_sharded(params, target, gscene,
+                                                      gcamera, w, h, mesh)
+            _sync()
+            t_sharded = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    t0 = time.perf_counter()
+    loss1 = inverse.image_loss(leaves, target, gscene, gcamera, w, h)
+    g1 = torch.autograd.grad(loss1, list(leaves.values()), allow_unused=True)
+    _sync()
+    t_single = time.perf_counter() - t0
+    single = {k: torch.zeros_like(v) if g is None else g
+              for (k, v), g in zip(leaves.items(), g1)}
+    got = {"loss": loss, **grads}
+    gap = _grads_gap(got, {"loss": loss1.detach(), **single})
+    check(math.isfinite(gap) and gap <= 1.0,
+          f"world-1 sharded gradients off the single-process ones: {gap}")
+    return {"frame_ms": _ms_stats(times), "frame_k1_launches": launches,
+            "bitwise_render_image": True, "grad_case": grad,
+            "loss": float(loss), "grad_gap_vs_image_loss": gap,
+            "loss_and_grad_sharded_s": t_sharded,
+            "image_loss_backward_s": t_single}, got, target
+
+
+def _to(tree, device):
+    """A record (Scene, Camera, tensor) with every tensor on device."""
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(lambda t: t.to(device), tree)
+
+
+def world2_job(mesh, scene, camera, target, size, grad):
+    """Phase 19b on one rank of a world of 2 gloo ranks sharing the card:
+    the frame of (scene, camera) (kernel engine, depth-sorted; ms median
+    of 3), one
+    make_train_step_sharded step of the gradient case (its gradients and
+    loss) and the dry run's legs (entry.dryrun_legs, what
+    dryrun_multichip(2) runs in its own world), each timed; host data
+    back."""
+    import torch
+
+    from blackhole_tpu_torch import entry
+    from blackhole_tpu_torch.parallel import mesh as pmesh
+    from blackhole_tpu_torch.render import trace_kernel
+
+    scene, camera = _to(scene, mesh.device), _to(camera, mesh.device)
+    img, times = _timed(lambda: pmesh.render_image_sharded(
+        scene, camera, size, size, mesh, engine="auto", depth_sort=True))
+    gscene, gcamera, params = sharded_grad_case(mesh.device, grad)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    optimizer = torch.optim.Adam(list(leaves.values()), lr=1e-2,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    step = pmesh.make_train_step_sharded(grad["width"], grad["height"],
+                                         mesh)
+    target = target.to(mesh.device)
+    _sync()
+    t0 = time.perf_counter()
+    _, _, loss = step(leaves, optimizer, target, gscene, gcamera)
+    _sync()
+    t_step = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = entry.dryrun_legs(mesh)
+    t_dry = time.perf_counter() - t0
+    return {"rank": mesh.rank, "host_staged": mesh.host_staged,
+            "image": img.cpu(), "frame_s": times, "step_s": t_step,
+            "dryrun_s": t_dry, "dryrun": dry,
+            "grads": {"loss": loss.cpu(),
+                      **{k: v.grad.cpu() for k, v in leaves.items()}},
+            "k1_launches": trace_kernel.launches}
+
+
+def check_sharded_world2(scene, camera, img_ref, grads_ref, target,
+                         device="cuda", size=1024, grad=SHARDED_GRAD):
+    """Phase 19b: world2_job on 2 gloo ranks on the card; every rank's
+    gathered frame bit for bit 19a's, its gradients within
+    SHARDED_GRAD_TOL of 19a's, the dry run's errors under 1e-4 and its
+    loss finite."""
+    import torch
+
+    from blackhole_tpu_torch import entry
+    from blackhole_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    ranks = launch.run_world(
+        world2_job, 2, "gloo", device, timeout_s=600,
+        args=(_to(scene, "cpu"), _to(camera, "cpu"), target.cpu(), size,
+              grad))
+    wall = time.perf_counter() - t0
+    ref = img_ref.cpu()
+    stats = {"world_s": wall, "ranks": []}
+    for r in ranks:
+        check(r["host_staged"] == (device == "cuda"),
+              "gloo ranks on a card must stage through the host")
+        check(torch.equal(r["image"], ref),
+              f"rank {r['rank']}'s gathered frame is not 19a's bit for bit")
+        gap = _grads_gap(r["grads"], grads_ref)
+        check(math.isfinite(gap) and gap <= 1.0,
+              f"rank {r['rank']}'s gradients off world 1's: {gap}")
+        stats["ranks"].append({
+            "rank": r["rank"], "frame_ms": _ms_stats(r["frame_s"]),
+            "step_s": r["step_s"], "grad_gap_vs_world1": gap,
+            "dryrun_s": r["dryrun_s"], "k1_launches": r["k1_launches"]})
+    entry.print_dryrun(2, ranks[0]["dryrun"])
+    return stats, sum(r["k1_launches"] for r in ranks)
+
+
+def check_export(dev, scene, camera, o, d, hit_ref):
+    """Phase 19c: export_trace of the bench scene with a symbolic ray
+    count, called on the 1024x1024 rays, against phase 7's
+    trace_rays_fast Hit on them under the RK4 colour contract (the rays
+    whose code is not MAX_STEPS), the values that differ bitwise
+    counted; export_render at 256x256 against trace_rays_fast of its rays
+    under the same contract, following a moved camera.  Export and call
+    times (calls: median of 3)."""
+    import torch
+
+    from blackhole_tpu_torch import export
+    from blackhole_tpu_torch.geom.types import RayResult
+    from blackhole_tpu_torch.render import camera as cam
+    from blackhole_tpu_torch.render import image, trace_kernel
+
+    def gate(color, hit, what):
+        keep = hit.result.reshape(-1) != RayResult.MAX_STEPS
+        err = float((color.reshape(-1, 3) - hit.color.reshape(-1, 3))
+                    .abs()[keep].max())
+        check(err < 2e-4, f"{what}: colour gap {err} against "
+              "trace_rays_fast")
+        return {"color_max": err,
+                "values_differing_bitwise": int(
+                    (color.reshape(-1) != hit.color.reshape(-1)).sum()),
+                "rays": int(hit.result.numel())}
+
+    t0 = time.perf_counter()
+    ep = export.load(export.export_trace(scene, poly_batch=True, device=dev))
+    t_export = time.perf_counter() - t0
+    before = trace_kernel.launches
+    color, times = _timed(lambda: export.call_trace(ep, scene, o, d))
+    stats = {"trace": {"export_s": t_export, "call_ms": _ms_stats(times),
+                       "k1_launches": trace_kernel.launches - before,
+                       **gate(color, hit_ref, "exported trace")}}
+    calls = len(times) + 1 if dev.type == "cuda" else 0
+    check(stats["trace"]["k1_launches"] == calls,
+          "the exported trace does not launch K1 once a call")
+
+    t0 = time.perf_counter()
+    ep_r = export.load(export.export_render(scene, camera, 256, 256,
+                                            device=dev))
+    t_export = time.perf_counter() - t0
+    moved = dataclasses.replace(
+        camera, position=torch.tensor([0.0, -40.0, 12.0], device=dev),
+        direction=torch.tensor([0.0, 40.0, -12.0], device=dev))
+    imgs = []
+    for c in (camera, moved):
+        img, times = _timed(lambda: export.call_render(ep_r, scene, c))
+        ro, rd = cam.generate_rays(c, 256, 256)
+        hit = image.trace_rays_fast(ro.reshape(-1, 3), rd.reshape(-1, 3),
+                                    scene)
+        imgs.append((img, gate(img, hit, "exported render")))
+    moved_by = float((imgs[1][0] - imgs[0][0]).abs().max())
+    check(moved_by > 1e-3, "the exported render does not follow the camera")
+    stats["render_256"] = {"export_s": t_export, "call_ms": _ms_stats(times),
+                           "moved_camera_max_change": moved_by,
+                           **imgs[0][1]}
+    return stats
+
+
+def check_examples(dev):
+    """Phase 19d, in this process: render_kerr and lensed_starfield at
+    their defaults (512x512), inverse_fit --method forward at its
+    defaults (K2), each timed to a synchronise; finite images, PNGs
+    written, finite losses falling."""
+    import tempfile
+
+    import torch
+
+    from blackhole_tpu_torch.examples import (
+        inverse_fit, lensed_starfield, render_kerr,
+    )
+
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, example in (("render_kerr", render_kerr),
+                              ("lensed_starfield", lensed_starfield)):
+            png = Path(tmp) / f"{name}.png"
+            t0 = time.perf_counter()
+            img = example.main(["--out", str(png)])
+            _sync()
+            stats[name] = {"s": time.perf_counter() - t0,
+                           "mean": float(img.mean())}
+            check(img.shape == (512, 512, 3) and img.device.type == "cuda"
+                  and bool(torch.isfinite(img).all())
+                  and png.stat().st_size > 1000, f"{name} image")
+    t0 = time.perf_counter()
+    fitted, losses = inverse_fit.main(["--method", "forward"])
+    stats["inverse_fit_forward"] = {
+        "s": time.perf_counter() - t0, "loss_first": losses[0],
+        "loss_last": losses[-1], "mass": float(fitted.blackhole.mass),
+        "spin": float(fitted.blackhole.spin)}
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"inverse_fit --method forward: losses {losses[0]} -> "
+          f"{losses[-1]}")
+    return stats
+
+
+def _watched(module, *args):
+    """_python_m(module, *args) with a thread that collects the process's
+    output and notes the seconds from its start to its exit (under
+    "s")."""
+    import threading
+
+    proc, t0 = _python_m(module, *args)
+    record = {"proc": proc}
+
+    def watch():
+        record["out"], record["err"] = proc.communicate()
+        record["s"] = time.perf_counter() - t0
+
+    record["thread"] = threading.Thread(target=watch, daemon=True)
+    record["thread"].start()
+    return record
+
+
+def check_example_processes(procs, timeout=900):
+    """Phase 19d's two _watched subprocesses {name: (record, the prefix
+    of its result line)}: each exits 0 and prints its result line; wall
+    times from start to exit."""
+    deadline = time.perf_counter() + timeout
+    stats = {}
+    for name, (record, prefix) in procs.items():
+        record["thread"].join(max(deadline - time.perf_counter(), 0.0))
+        check(not record["thread"].is_alive()
+              and record["proc"].returncode == 0,
+              f"{name} exited {record['proc'].returncode}: "
+              f"{record.get('err', '')[-2000:]}")
+        line = next((x for x in record["out"].splitlines()
+                     if x.startswith(prefix)), None)
+        check(line is not None and "nan" not in line,
+              f"{name} printed {record['out'][-500:]}")
+        stats[name] = {"s": record["s"], "line": line}
+    return stats
+
+
+def phase19(dev, smi, scene, camera, img, o, d, hit):
+    """Phase 19 (main's): 19a-d on phase 7's bench scene, frame (img),
+    rays (o, d) and their trace_rays_fast Hit.  Returns ((K1, K2)
+    launches in this process, K1 launches in the world-2 ranks)."""
+    from blackhole_tpu_torch.render import trace_kernel
+
+    t19 = time.perf_counter()
+    trace_kernel.launches = trace_kernel.fwdgrad_launches = 0
+    world1, grads1, target = check_sharded_world1(dev, scene, camera, img)
+    print(f"sharded world 1 nccl ({smi}): {json.dumps(world1)}")
+    # The reverse fit and distributed_render (its own world of one rank)
+    # run as subprocesses beside 19b-d, which share the card with them.
+    procs = {
+        "inverse_fit_reverse": (_watched(
+            "blackhole_tpu_torch.examples.inverse_fit", "--method",
+            "reverse", "--fit-steps", "2"), "start mass="),
+        "distributed_render_world1": (_watched(
+            "blackhole_tpu_torch.examples.distributed_render", "--world",
+            "1"), "one distributed fwd+bwd step")}
+    try:
+        world2, world2_launches = check_sharded_world2(scene, camera, img,
+                                                       grads1, target)
+        print(f"sharded world 2 gloo, two ranks sharing the card, "
+              f"collectives staged through the host ({smi}): "
+              f"{json.dumps(world2)}")
+        print(f"export ({smi}): "
+              f"{json.dumps(check_export(dev, scene, camera, o, d, hit))}")
+        print(f"examples ({smi}): {json.dumps(check_examples(dev))}")
+        print(f"example processes ({smi}): "
+              f"{json.dumps(check_example_processes(procs))}")
+    finally:
+        for record, _ in procs.values():
+            if record["proc"].poll() is None:
+                record["proc"].kill()
+                record["proc"].wait()
+    launches = (trace_kernel.launches, trace_kernel.fwdgrad_launches)
+    check(launches[0] >= 1 and launches[1] >= 1,
+          f"phase 19 launched K1 {launches[0]} and K2 {launches[1]} times")
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s, K1 launches "
+          f"{launches[0]} here and {world2_launches} in the world-2 ranks, "
+          f"K2 launches {launches[1]}")
+    return launches, world2_launches
+
+
 _VARIANT = re.compile(r"(trace_kernel|fwdgrad_kernel)I(Li\d+E)?"
                       r"Lb(\d)ELb(\d)ELb(\d)E")
 
@@ -2774,15 +3206,20 @@ def main() -> int:
     import multiprocessing
 
     cpu_pool = multiprocessing.get_context("spawn").Pool(1)
+    # Phase 8's plain K2 passes run on the card beside phases 3-6.
+    plain_pool = multiprocessing.get_context("spawn").Pool(2)
     try:
+        plain_jobs = {w: plain_pool.apply_async(plain_main_shapes, (w,))
+                      for w in ("rk4", "rkf45")}
         return _main_phases(smi, dev, libs, cpu_pool.apply_async(
-            cpu_references).get)
+            cpu_references).get, plain_jobs)
     finally:
-        cpu_pool.terminate()
-        cpu_pool.join()
+        for pool in (cpu_pool, plain_pool):
+            pool.terminate()
+            pool.join()
 
 
-def _main_phases(smi, dev, libs, cpu_ref) -> int:
+def _main_phases(smi, dev, libs, cpu_ref, plain_jobs) -> int:
     """Phases 3-18 and the last three lines (main's); cpu_ref() returns
     cpu_references' result."""
     import torch
@@ -2824,6 +3261,10 @@ def _main_phases(smi, dev, libs, cpu_ref) -> int:
     from blackhole_tpu_torch.render import camera as cam
     from blackhole_tpu_torch.render import image, trace_kernel
 
+    # Phase 8's plain passes (plain_main_shapes) end before phase 7's
+    # timings start.
+    plains = {w: (tuple(t.to(dev) for t in job.get()[0]), job.get()[1])
+              for w, job in plain_jobs.items()}
     print(f"[{time.perf_counter() - T0:.1f} s] phase 7")
     # 7. The forward half of the main path.
     scene, camera = bench_scene(dev)
@@ -2902,7 +3343,7 @@ def _main_phases(smi, dev, libs, cpu_ref) -> int:
         time_fwdbwd(name, base, camera, o, d)
 
     k2, plain_s, k2_steps = check_fwdgrad_main_shapes(o, d, scene, scene45,
-                                                      planes_k, ms_k)
+                                                      planes_k, ms_k, plains)
 
     print(f"[{time.perf_counter() - T0:.1f} s] phase 9")
     # 9. The soft path at 1024^2.
@@ -2989,18 +3430,24 @@ def _main_phases(smi, dev, libs, cpu_ref) -> int:
     print(f"phase 18: {time.perf_counter() - t18:.1f} s, K1 launches "
           f"{front_launches} (served {served_launches}, adaptive "
           f"{adapt_launches}, orbit {orbit_launches})")
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 19")
+    # 19. Sharded rendering, export and the examples on the card.
+    sharded_launches, world2_launches = phase19(dev, smi, scene, camera, img,
+                                                o, d, hit)
     print(f"[{time.perf_counter() - T0:.1f} s] done")
 
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "trace_planes", **KERNELS["trace_planes"],
          "launches": (fwd_launches[0] + rev["launches"] + api_launches
-                      + front_launches),
+                      + front_launches + sharded_launches[0]
+                      + world2_launches),
          "max_abs_err": big["color_max"],
          "ms": ms_k, "plain_ms": ms_p, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "trace_planes_fwdgrad", **KERNELS["trace_planes_fwdgrad"],
-         **k2, "launches": grad_launches[1]},
+         **k2, "launches": grad_launches[1] + sharded_launches[1]},
         *track_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {

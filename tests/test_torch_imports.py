@@ -1,7 +1,8 @@
 """The PyTorch port and chip_smoke.py import neither jax nor the JAX
 package: every import statement of every module (function-level imports
 included), and at run time the XLA engine, reverse mode and fit, the
-CLI's tests command, the terminal viewer and the render server.  The
+CLI's tests command, the terminal viewer and the render server, the
+sharded render and export.  The
 API's context, like the records, is made on the card unless asked for
 another device."""
 
@@ -110,6 +111,44 @@ def test_viewer_and_server_run_without_jax():
         "rs.render_loop(max_frames=1)\n"
         "png, seq, tier = rs.frame()\n"
         "assert png[:8] == b'\\x89PNG\\r\\n\\x1a\\n' and (seq, tier) == (1, '1/32')\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'blackhole_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_parallel_export_and_examples_run_without_jax():
+    """The sharded render on a world of one rank, an exported trace
+    called after its round trip through bytes, and the imports of the
+    scaling harness, the entry points and the examples leave jax and the
+    JAX package out of sys.modules."""
+    code = (
+        "import sys, torch\n"
+        "from blackhole_tpu_torch import entry, export\n"
+        "from blackhole_tpu_torch.examples import distributed_render, "
+        "inverse_fit, lensed_starfield, render_kerr\n"
+        "from blackhole_tpu_torch.geom.types import "
+        "BlackHole, Camera, Disk, Scene, SimConfig\n"
+        "from blackhole_tpu_torch.parallel import launch, mesh, scaling\n"
+        "cpu = dict(device='cpu')\n"
+        "scene = Scene(BlackHole.create(1.0, 0.9, **cpu), Disk.create(**cpu),\n"
+        "              SimConfig.create(max_steps=12, time_step=0.5, **cpu))\n"
+        "camera = Camera.create(position=(0.0, -30.0, 8.0),\n"
+        "                       direction=(0.0, 30.0, -8.0),\n"
+        "                       up=(0.0, 0.0, 1.0), **cpu)\n"
+        "m = mesh.make_mesh(device='cpu')\n"
+        "assert (m.size, m.group) == (1, None)\n"
+        "img = mesh.render_image_sharded(scene, camera, 4, 4, m, engine='auto')\n"
+        "ep = export.load(export.export_trace(scene, poly_batch=True))\n"
+        "o = camera.position.expand(16, 3)\n"
+        "d = torch.nn.functional.normalize(torch.randn(16, 3), dim=-1)\n"
+        "assert export.call_trace(ep, scene, o, d).shape == (16, 3)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'blackhole_tpu')]\n"
         "assert not bad, bad\n"
