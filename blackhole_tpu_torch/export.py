@@ -2,12 +2,17 @@
 
 PyTorch counterpart of blackhole_tpu.export.  The JAX package lowers
 its tracer to versioned StableHLO bytes (jax.export); here torch.export
-captures the geodesic-kernel path (render.trace_kernel.trace_rays_kernel:
-prepare, the planes pass, postprocess) as an ExportedProgram, saved to
-bytes with torch.export.save.  The planes pass is recorded as the
-registered operator blackhole_tpu_torch::trace_planes: the program
-launches K1 (csrc/trace_kernel.cu) when it is called on CUDA tensors and
-runs K1's plain version on CPU tensors.
+captures what image.trace_rays_fast (engine "auto") runs, as an
+ExportedProgram saved to bytes with torch.export.save:
+- RK4 and RKF45 scenes: the geodesic-kernel path
+  (render.trace_kernel.trace_rays_kernel: prepare, the planes pass,
+  postprocess).  The planes pass is recorded as the registered operator
+  blackhole_tpu_torch::trace_planes: the program launches K1
+  (csrc/trace_kernel.cu) when it is called on CUDA tensors and runs K1's
+  plain version on CPU tensors.
+- LEAPFROG and YOSHIDA scenes: the XLA engine (render.trace.trace_rays),
+  whose step loop is recorded as a traced while_loop, as the JAX
+  package's is; the program runs on the device of its inputs.
 
 Artifacts are resolution- and config-specialized: the integrator, the
 step budget, disk on/off and the soft boundary are baked in; use
@@ -16,13 +21,11 @@ parameters stay RUNTIME inputs: the 11 scene scalars (_scene_args
 order) and, for export_render, the camera are arguments of the program,
 so one artifact serves every parameter setting.
 
-Two differences from the JAX package's artifacts:
-- loading one needs this package imported (import blackhole_tpu_torch),
-  which registers the operator the program calls: the artifact does not
-  run without this package's Python source;
-- only RK4 and RKF45 scenes export, the integrators the kernel
-  implements; export_trace and export_render raise ValueError for
-  LEAPFROG and YOSHIDA.
+One difference from the JAX package's artifacts: loading one needs this
+package imported (import blackhole_tpu_torch), which registers the
+operators the program calls (init_null_rays, and trace_planes for RK4
+and RKF45): the artifact does not run without this package's Python
+source.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from torch.utils import _pytree as pytree
 
 from blackhole_tpu_torch.geom.types import Camera, Scene
 from blackhole_tpu_torch.render import camera as cam_mod
-from blackhole_tpu_torch.render import trace_kernel
+from blackhole_tpu_torch.render import image
 
 
 def _scene_args(scene: Scene):
@@ -79,7 +82,7 @@ class _Trace(torch.nn.Module):
 
     def forward(self, *args):
         scene = _rebuild_scene(self.template, args[:-2])
-        return trace_kernel.trace_rays_kernel(args[-2], args[-1], scene).color
+        return image.trace_rays_fast(args[-2], args[-1], scene).color
 
 
 class _Render(torch.nn.Module):
@@ -95,8 +98,8 @@ class _Render(torch.nn.Module):
         camera = dataclasses.replace(self.camera, position=pos,
                                      direction=dirn, up=up, fov_deg=fov)
         o, d = cam_mod.generate_rays(camera, self.width, self.height)
-        hit = trace_kernel.trace_rays_kernel(o.reshape(-1, 3),
-                                             d.reshape(-1, 3), scene)
+        hit = image.trace_rays_fast(o.reshape(-1, 3), d.reshape(-1, 3),
+                                    scene)
         return hit.color.reshape(self.height, self.width, 3)
 
 
@@ -127,8 +130,7 @@ def export_trace(scene: Scene, n_rays: int | None = None,
     all float32.  poly_batch=True exports with a symbolic N (any ray
     count of at least 2 at call time); otherwise n_rays is required and
     baked in.  device: where the program runs (default: the scene's);
-    a CUDA program launches K1."""
-    trace_kernel.planes_args(scene)  # RK4 and RKF45 only
+    a CUDA program of an RK4 or RKF45 scene launches K1."""
     if not poly_batch and n_rays is None:
         raise ValueError("n_rays required unless poly_batch=True")
     device = torch.device(device or scene.blackhole.mass.device)
@@ -148,7 +150,6 @@ def export_render(scene: Scene, camera: Camera, width: int, height: int,
     """Export a full fixed-resolution render:
     (scene_args..., cam_pos (3,), cam_dir (3,), cam_up (3,), fov ())
     -> (H, W, 3) image, all float32."""
-    trace_kernel.planes_args(scene)
     device = torch.device(device or camera.position.device)
     cam_args = tuple(t.detach().to(device=device, dtype=torch.float32)
                      for t in (camera.position, camera.direction, camera.up,
@@ -162,7 +163,7 @@ def export_render(scene: Scene, camera: Camera, width: int, height: int,
 def load(blob: bytes):
     """Deserialize an exported artifact: an ExportedProgram, whose
     .module() is callable.  This package must be imported (it is, by
-    this module) so that the program's operator is registered."""
+    this module) so that the program's operators are registered."""
     return torch.export.load(io.BytesIO(blob))
 
 

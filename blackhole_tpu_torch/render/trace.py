@@ -11,8 +11,9 @@ finalize):
   masks, not control flow), and trace_rays repeats it until no ray is
   active or the step budget is spent, checking both on the host before
   every step (one synchronisation per step), so it stops exactly where
-  the JAX package's while_loop does.  grad.diff_trace re-drives the
-  same trace_step for reverse mode.
+  the JAX package's while_loop does; under torch.export the same step
+  runs inside a traced while_loop instead (export.py).  grad.diff_trace
+  re-drives the same trace_step for reverse mode.
 
 The state is trig-augmented (geodesic.rhs_aug): sin/cos of theta and
 phi ride as slaved components, renormalised to the unit circle every
@@ -439,6 +440,50 @@ def guard_carry(carry: TraceCarry, guard) -> TraceCarry:
     return carry._replace(**dict(zip(names, out)))
 
 
+def _advance(carry: TraceCarry, scene: Scene, step_fn, adaptive: bool,
+             guard) -> TraceCarry:
+    """The loop body of trace_rays: one trace_step, then guard (the
+    tangent guard, or its primal under export) on the float fields."""
+    return guard_carry(trace_step(carry, scene, step_fn, adaptive), guard)
+
+
+def _primal(ray_ndim: int, tree):
+    """tangent_guard's primal, for the exported loop: the guard is the
+    identity there, and the program is not differentiated (a default
+    jax.export artifact is not either)."""
+    return tree
+
+
+def _while_loop(carry: TraceCarry, scene: Scene, step_fn, adaptive: bool,
+                max_steps: int) -> TraceCarry:
+    """trace_rays's loop as torch._higher_order_ops.while_loop, which
+    torch.export captures (the JAX package's while_loop: the same cond
+    and body).  The carry is the counter (a 0-d int32 tensor) and
+    TraceCarry's tensor fields.  The initial fields must have the
+    body's strides (init_carry's min_r is a column view of y), and the
+    body may not return one of its inputs (L passes through
+    trace_step): so the fields start contiguous and the body returns
+    copies."""
+    names = [f for f in TraceCarry._fields
+             if f != "iter" and getattr(carry, f) is not None]
+
+    def unpack(fields):
+        return carry._replace(iter=0, **dict(zip(names, fields)))
+
+    def cond(it, *fields):
+        return (it < max_steps) & (unpack(fields).result == ACTIVE).any()
+
+    def body(it, *fields):
+        c = _advance(unpack(fields), scene, step_fn, adaptive, _primal)
+        return (it + 1,) + tuple(getattr(c, f).clone() for f in names)
+
+    it = torch.zeros((), dtype=torch.int32, device=carry.y.device)
+    it, *fields = torch._higher_order_ops.while_loop(
+        cond, body,
+        (it,) + tuple(getattr(carry, f).contiguous() for f in names))
+    return unpack(fields)
+
+
 def trace_rays(origins, directions, scene: Scene) -> Hit:
     """Trace rays (..., 3) to completion on their device (the XLA
     engine).  Before every step the host checks the step budget and
@@ -446,16 +491,23 @@ def trace_rays(origins, directions, scene: Scene) -> Hit:
     cond does; the tangent guard (identity on the primal) follows every
     step, so torch.func.jvp through this engine guards each ray's
     tangent.  Reverse mode through it raises, as jax.grad through the
-    while_loop does: grad.diff_trace is the reverse-mode trace."""
+    while_loop does: grad.diff_trace is the reverse-mode trace.
+
+    Under torch.export the same step runs inside a traced while_loop
+    (_while_loop), which syncs the host once a step when called as the
+    Python loop does."""
     batch_shape = origins.shape[:-1]
     o = origins.reshape(-1, 3)
     d = directions.reshape(-1, 3)
     step_fn, adaptive = make_step_fn(scene)
     carry = init_carry(o, d, scene)
     max_steps = scene.config.max_steps
-    while carry.iter < max_steps and bool((carry.result == ACTIVE).any()):
-        carry = guard_carry(trace_step(carry, scene, step_fn, adaptive),
-                            sensitivity.tangent_guard)
+    if torch.compiler.is_exporting():
+        carry = _while_loop(carry, scene, step_fn, adaptive, max_steps)
+    else:
+        while carry.iter < max_steps and bool((carry.result == ACTIVE).any()):
+            carry = _advance(carry, scene, step_fn, adaptive,
+                             sensitivity.tangent_guard)
     margin = (compute_capture_margin(o, d, scene)
               if float(scene.config.shadow_softness) > 0.0 else None)
     hit = finalize(carry, scene, margin=margin)

@@ -184,7 +184,12 @@ Phases (each raises on failure; nothing is caught):
      symbolic ray count on the 1024x1024 rays against phase 7's
      trace_rays_fast under the RK4 colour contract (values differing
      bitwise counted, one K1 launch a call), export_render at 256x256
-     the same and following a moved camera, export and call times; (d)
+     the same and following a moved camera, export and call times; then
+     (check_export_xla) the bench scene under LEAPFROG and YOSHIDA, whose
+     artifacts hold the XLA engine's traced while_loop: one call each on
+     the 1024x1024 rays against the live trace_rays_fast (colour max
+     < 2e-4 over its non-MAX_STEPS rays, values differing bitwise
+     counted, no K1 launch), export, call and live seconds; (d)
      the examples: render_kerr, lensed_starfield (512x512) and
      inverse_fit --method forward (K2) at their defaults in this
      process, inverse_fit --method reverse --fit-steps 2 and
@@ -2702,6 +2707,24 @@ def check_sharded_world2(scene, camera, img_ref, grads_ref, target,
     return stats, sum(r["k1_launches"] for r in ranks)
 
 
+def export_gate(color, hit, what):
+    """An exported program's colour against the live trace_rays_fast Hit
+    on the same rays: the max gap over the rays whose code is not
+    MAX_STEPS within 2e-4 (the RK4 and symplectic colour contract), and
+    the values that differ bitwise."""
+    from blackhole_tpu_torch.geom.types import RayResult
+
+    keep = hit.result.reshape(-1) != RayResult.MAX_STEPS
+    err = float((color.reshape(-1, 3) - hit.color.reshape(-1, 3))
+                .abs()[keep].max())
+    check(err < 2e-4, f"{what}: colour gap {err} against trace_rays_fast")
+    return {"color_max": err,
+            "values_differing_bitwise": int(
+                (color.reshape(-1) != hit.color.reshape(-1)).sum()),
+            "rays": int(hit.result.numel()),
+            "rays_not_max_steps": int(keep.sum())}
+
+
 def check_export(dev, scene, camera, o, d, hit_ref):
     """Phase 19c: export_trace of the bench scene with a symbolic ray
     count, called on the 1024x1024 rays, against phase 7's
@@ -2713,20 +2736,8 @@ def check_export(dev, scene, camera, o, d, hit_ref):
     import torch
 
     from blackhole_tpu_torch import export
-    from blackhole_tpu_torch.geom.types import RayResult
     from blackhole_tpu_torch.render import camera as cam
     from blackhole_tpu_torch.render import image, trace_kernel
-
-    def gate(color, hit, what):
-        keep = hit.result.reshape(-1) != RayResult.MAX_STEPS
-        err = float((color.reshape(-1, 3) - hit.color.reshape(-1, 3))
-                    .abs()[keep].max())
-        check(err < 2e-4, f"{what}: colour gap {err} against "
-              "trace_rays_fast")
-        return {"color_max": err,
-                "values_differing_bitwise": int(
-                    (color.reshape(-1) != hit.color.reshape(-1)).sum()),
-                "rays": int(hit.result.numel())}
 
     t0 = time.perf_counter()
     ep = export.load(export.export_trace(scene, poly_batch=True, device=dev))
@@ -2735,7 +2746,7 @@ def check_export(dev, scene, camera, o, d, hit_ref):
     color, times = _timed(lambda: export.call_trace(ep, scene, o, d))
     stats = {"trace": {"export_s": t_export, "call_ms": _ms_stats(times),
                        "k1_launches": trace_kernel.launches - before,
-                       **gate(color, hit_ref, "exported trace")}}
+                       **export_gate(color, hit_ref, "exported trace")}}
     calls = len(times) + 1 if dev.type == "cuda" else 0
     check(stats["trace"]["k1_launches"] == calls,
           "the exported trace does not launch K1 once a call")
@@ -2753,12 +2764,55 @@ def check_export(dev, scene, camera, o, d, hit_ref):
         ro, rd = cam.generate_rays(c, 256, 256)
         hit = image.trace_rays_fast(ro.reshape(-1, 3), rd.reshape(-1, 3),
                                     scene)
-        imgs.append((img, gate(img, hit, "exported render")))
+        imgs.append((img, export_gate(img, hit, "exported render")))
     moved_by = float((imgs[1][0] - imgs[0][0]).abs().max())
     check(moved_by > 1e-3, "the exported render does not follow the camera")
     stats["render_256"] = {"export_s": t_export, "call_ms": _ms_stats(times),
                            "moved_camera_max_change": moved_by,
                            **imgs[0][1]}
+    return stats
+
+
+def check_export_xla(dev, scene, o, d):
+    """Phase 19c, the XLA engine: export_trace of the scene under
+    LEAPFROG and YOSHIDA with a symbolic ray count (a traced while_loop
+    over trace.trace_rays's step), one call on the rays (o, d) against
+    the live trace_rays_fast (the XLA engine) on them: the colour max
+    over the live Hit's rays that are not MAX_STEPS under the symplectic
+    integrators' contract (< 2e-4), the values that differ bitwise, and
+    no K1 launch.  Export and call seconds (one call each: a call takes
+    seconds), and the operators in the traced loop body (each a launch
+    a step when called)."""
+    from blackhole_tpu_torch import export
+    from blackhole_tpu_torch.render import image, trace_kernel
+
+    stats = {}
+    for integ in ("leapfrog", "yoshida"):
+        sc = dataclasses.replace(scene, config=dataclasses.replace(
+            scene.config, integrator=integ))
+        t0 = time.perf_counter()
+        ep = export.load(export.export_trace(sc, poly_batch=True,
+                                             device=dev))
+        t_export = time.perf_counter() - t0
+        code = ep.graph_module.code
+        check("while_loop" in code and "trace_planes" not in code,
+              f"the exported {integ} trace is not the XLA engine's loop")
+        body_ops = sum(
+            node.op == "call_function"
+            for name, sub in ep.graph_module.named_children()
+            if name.startswith("while_loop_body") for node in sub.graph.nodes)
+        before = trace_kernel.launches
+        color, t_call = _timed(lambda: export.call_trace(ep, sc, o, d),
+                               repeats=1, warmup=False)
+        k1 = trace_kernel.launches - before
+        check(k1 == 0, f"the exported {integ} trace launched K1 {k1} times")
+        hit, t_live = _timed(lambda: image.trace_rays_fast(o, d, sc),
+                             repeats=1, warmup=False)
+        stats[integ] = {
+            "export_s": t_export, "call_s": t_call[0], "live_s": t_live[0],
+            **export_gate(color, hit, f"exported {integ} trace"),
+            "steps_max": int(hit.steps.max()), "loop_body_ops": body_ops,
+            "k1_launches": k1}
     return stats
 
 
@@ -2865,6 +2919,8 @@ def phase19(dev, smi, scene, camera, img, o, d, hit):
               f"{json.dumps(world2)}")
         print(f"export ({smi}): "
               f"{json.dumps(check_export(dev, scene, camera, o, d, hit))}")
+        print(f"export, XLA engine ({smi}): "
+              f"{json.dumps(check_export_xla(dev, scene, o, d))}")
         print(f"examples ({smi}): {json.dumps(check_examples(dev))}")
         print(f"example processes ({smi}): "
               f"{json.dumps(check_example_processes(procs))}")

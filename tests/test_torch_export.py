@@ -3,10 +3,16 @@ against the port's live calls and the JAX package's deserialised
 jax.export artifacts, on the cases of tests/test_export.py.
 
 Each artifact is held bit for bit to the port's live call on the same
-inputs (trace_kernel.trace_rays_kernel: K1's plain version on the CPU),
-and under the RK4 colour contract (max < 2e-4; tools/tpu_parity.py) to
+inputs (image.trace_rays_fast, which the artifact exports), and to
 JAX's artifact, which exports the XLA engine, called on the same
-inputs.  The program records the registered K1 operator.
+inputs.  RK4 scenes export the geodesic kernel path (K1's plain version
+on the CPU): the program records the registered K1 operator, under the
+RK4 colour contract (max < 2e-4; tools/tpu_parity.py).  LEAPFROG and
+YOSHIDA scenes export the port's XLA engine as a traced while_loop,
+under the symplectic integrators' contract (tests/test_torch_xla_engine.py:
+result codes and steps of the live Hits equal, colour max < 2e-4 over
+the rays JAX's Hit does not mark MAX_STEPS); their scenes take 400
+steps, so that rays end on the disk and at the horizon inside the loop.
 """
 
 import dataclasses
@@ -19,24 +25,29 @@ import torch
 from blackhole_tpu import export as jexport
 from blackhole_tpu.geom import types as jtypes
 from blackhole_tpu.render import camera as jcam
+from blackhole_tpu.render import trace as jtrace
 from blackhole_tpu_torch import export as bx
 from blackhole_tpu_torch.geom.types import (
-    camera_from_reference, scene_from_reference,
+    RayResult, camera_from_reference, scene_from_reference,
 )
 from blackhole_tpu_torch.render import camera as cam
-from blackhole_tpu_torch.render import trace_kernel
+from blackhole_tpu_torch.render import image, trace_kernel
 
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
 RK4_COLOR_MAX = 2e-4
 
 
-def _jscene(mass=1.0, spin=0.5):
+def _jscene(mass=1.0, spin=0.5, integrator="rk4", softness=0.0):
+    """80 steps for RK4 (tests/test_export.py), 400 for the XLA engine's
+    integrators."""
     return jtypes.Scene(
         blackhole=jtypes.BlackHole.create(mass, spin),
         disk=jtypes.Disk.create(6.0, 20.0),
         config=jtypes.SimConfig.create(
-            time_step=0.1, max_ray_distance=60.0, max_steps=80
+            time_step=0.1, max_ray_distance=60.0,
+            max_steps=80 if integrator == "rk4" else 400,
+            integrator=integrator, shadow_softness=softness,
         ),
         disk_enabled=True,
     )
@@ -146,15 +157,106 @@ def test_render_artifact_camera_is_runtime():
     assert (images[1] - images[0]).abs().max() > 1e-3
 
 
-def test_graph_calls_the_k1_operator_and_leapfrog_raises(trace64):
+def test_graph_calls_the_k1_operator(trace64):
     exported, _ = trace64
     code = exported.graph_module.code
     assert "torch.ops.blackhole_tpu_torch.trace_planes.default" in code
-    leap = _port(dataclasses.replace(_jscene(), config=dataclasses.replace(
-        _jscene().config, integrator="leapfrog")))
-    for export_call in (lambda: bx.export_trace(leap, n_rays=64),
-                        lambda: bx.export_render(
-                            leap, camera_from_reference(_jcamera(), "cpu"),
-                            4, 4)):
-        with pytest.raises(ValueError, match="RK4 and RKF45"):
-            export_call()
+    assert "while_loop" not in code
+
+
+def _check_xla(exported, got, live, jax_got, jhit):
+    """The XLA engine's artifact: a traced while_loop and no K1 operator;
+    bit for bit the live trace_rays_fast Hit's colour; that Hit's result
+    codes and steps JAX's, and the colour within 2e-4 of JAX's
+    artifact's over the rays JAX's Hit does not mark MAX_STEPS."""
+    code = exported.graph_module.code
+    assert "while_loop" in code and "trace_planes" not in code
+    np.testing.assert_array_equal(got.numpy(), live.color.numpy())
+    res_ref = np.asarray(jhit.result).reshape(-1)
+    np.testing.assert_array_equal(live.result.numpy().reshape(-1), res_ref)
+    np.testing.assert_array_equal(live.steps.numpy().reshape(-1),
+                                  np.asarray(jhit.steps).reshape(-1))
+    keep = res_ref != RayResult.MAX_STEPS
+    assert keep.any() and (res_ref == RayResult.DISK).any()
+    err = np.abs(got.numpy().reshape(-1, 3)
+                 - np.asarray(jax_got).reshape(-1, 3))[keep].max()
+    assert err < RK4_COLOR_MAX, err
+
+
+@pytest.fixture(scope="module", params=["leapfrog", "yoshida"])
+def xla64(request):
+    """The 8x8 artifacts (n_rays=64) of both packages for a scene that
+    trace_rays_fast sends to the XLA engine."""
+    jscene = _jscene(integrator=request.param)
+    return (jscene, bx.load(bx.export_trace(_port(jscene), n_rays=64)),
+            jexport.load(jexport.export_trace(jscene, n_rays=64)))
+
+
+def test_xla_engine_roundtrip_matches_live(xla64):
+    jscene, exported, jexported = xla64
+    o, d = _rays(8)
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    scene = _port(jscene)
+    got = bx.call_trace(exported, scene, to, td)
+    _check_xla(exported, got, image.trace_rays_fast(to, td, scene),
+               jexport.call_trace(jexported, jscene, o, d),
+               jtrace.trace_rays(o, d, jscene))
+
+
+def test_xla_engine_artifact_serves_new_scene_params(xla64):
+    jscene, exported, jexported = xla64
+    jhot = _hot(jscene)
+    o, d = _rays(8)
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    hot = _port(jhot)
+    got = bx.call_trace(exported, hot, to, td)
+    _check_xla(exported, got, image.trace_rays_fast(to, td, hot),
+               jexport.call_trace(jexported, jhot, o, d),
+               jtrace.trace_rays(o, d, jhot))
+    base = bx.call_trace(exported, _port(jscene), to, td)
+    assert (got - base).abs().max() > 1e-4
+
+
+def test_xla_engine_poly_batch_soft_yoshida():
+    """A symbolic ray count (traced at 16 rays), called at 36 and 100;
+    shadow_softness 0.3 carries the tracking fields through the loop and
+    adds the capture margin."""
+    jscene = _jscene(integrator="yoshida", softness=0.3)
+    scene = _port(jscene)
+    exported = bx.load(bx.export_trace(scene, poly_batch=True))
+    jexported = jexport.load(jexport.export_trace(jscene, poly_batch=True))
+    for size in (6, 10):
+        o, d = _rays(size)
+        to, td = torch.from_numpy(o), torch.from_numpy(d)
+        got = bx.call_trace(exported, scene, to, td)
+        assert got.shape == (size * size, 3)
+        _check_xla(exported, got, image.trace_rays_fast(to, td, scene),
+                   jexport.call_trace(jexported, jscene, o, d),
+                   jtrace.trace_rays(o, d, jscene))
+
+
+def test_xla_engine_render_artifact_camera_is_runtime():
+    jscene, jcamera = _jscene(integrator="yoshida"), _jcamera()
+    scene = _port(jscene)
+    camera = camera_from_reference(jcamera, "cpu")
+    exported = bx.load(bx.export_render(scene, camera, 12, 12))
+    jexported = jexport.load(jexport.export_render(jscene, jcamera, 12, 12))
+    moved_j = dataclasses.replace(
+        jcamera, position=jnp.asarray([0.0, -40.0, 12.0], jnp.float32),
+        direction=jnp.asarray([0.0, 40.0, -12.0], jnp.float32),
+    )
+    images = []
+    for jc in (jcamera, moved_j):
+        c = camera_from_reference(jc, "cpu")
+        img = bx.call_render(exported, scene, c)
+        assert img.shape == (12, 12, 3)
+        o, d = cam.generate_rays(c, 12, 12)
+        jo, jd = jcam.generate_rays(jc, 12, 12)
+        _check_xla(exported, img.reshape(-1, 3),
+                   image.trace_rays_fast(o.reshape(-1, 3), d.reshape(-1, 3),
+                                         scene),
+                   jexport.call_render(jexported, jscene, jc),
+                   jtrace.trace_rays(jo.reshape(-1, 3), jd.reshape(-1, 3),
+                                     jscene))
+        images.append(img)
+    assert (images[1] - images[0]).abs().max() > 1e-3
