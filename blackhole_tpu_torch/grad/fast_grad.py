@@ -16,12 +16,14 @@ every component is one tangent direction.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 from torch.func import jvp
 from torch.utils import _pytree as pytree
 
 from blackhole_tpu_torch.render import trace_kernel
+from blackhole_tpu_torch.utils import profiling
 
 # Per-component winsorisation of colour tangents: near-critical rays'
 # pathwise tangents are finite (the tangent guard caps them) but carry
@@ -158,16 +160,20 @@ def render_value_and_grad(loss_of_hit, setup_fn, tangent_clip=TANGENT_CLIP):
     all through ONE pass of K2.  Returns g(params, order=None) ->
     (loss, grads)."""
 
+    calls = itertools.count()
+
     def value_and_grad(params, order=None):
-        values, rebuild = _flatten_scalars(params)
+        with profiling.span("grad.value_and_grad", next(calls)):
+            values, rebuild = _flatten_scalars(params)
 
-        def build(vals):
-            return setup_fn(rebuild(vals))
+            def build(vals):
+                return setup_fn(rebuild(vals))
 
-        (scene, origins, dirs), tangents = _build_and_tangents(build, values)
-        hit, dhits = trace_kernel.trace_rays_kernel_fwdgrad(
-            origins, dirs, scene, tangents, order=order)
-        return _losses(loss_of_hit, hit, dhits, tangent_clip, rebuild)
+            (scene, origins, dirs), tangents = _build_and_tangents(build,
+                                                                   values)
+            hit, dhits = trace_kernel.trace_rays_kernel_fwdgrad(
+                origins, dirs, scene, tangents, order=order)
+            return _losses(loss_of_hit, hit, dhits, tangent_clip, rebuild)
 
     return value_and_grad
 
@@ -181,15 +187,18 @@ def scene_value_and_grad(loss_of_hit, scene_fn, tangent_clip=TANGENT_CLIP):
     n (P + T)), this carries all n tangents beside one primal (P + n T):
     the fast path for the bench's (mass, spin) gradient."""
 
+    calls = itertools.count()
+
     def value_and_grad(params, origins, dirs, order=None):
-        values, rebuild = _flatten_scalars(params)
+        with profiling.span("grad.value_and_grad", next(calls)):
+            values, rebuild = _flatten_scalars(params)
 
-        def build(vals):
-            return scene_fn(rebuild(vals))
+            def build(vals):
+                return scene_fn(rebuild(vals))
 
-        scene, tangents = _build_and_tangents(build, values)
-        hit, dhits = trace_kernel.trace_rays_kernel_fwdgrad(
-            origins, dirs, scene, tangents, order=order)
-        return _losses(loss_of_hit, hit, dhits, tangent_clip, rebuild)
+            scene, tangents = _build_and_tangents(build, values)
+            hit, dhits = trace_kernel.trace_rays_kernel_fwdgrad(
+                origins, dirs, scene, tangents, order=order)
+            return _losses(loss_of_hit, hit, dhits, tangent_clip, rebuild)
 
     return value_and_grad

@@ -10,6 +10,7 @@ kernel on a GPU, its plain version on the CPU) and the XLA engine
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +18,9 @@ import torch.nn.functional as F
 from blackhole_tpu_torch.geom.types import Camera, Hit, Integrator, Scene
 from blackhole_tpu_torch.render import camera as cam
 from blackhole_tpu_torch.render import trace, trace_kernel
+from blackhole_tpu_torch.utils import profiling
+
+_renders = itertools.count()  # render_image's calls: its span's key
 
 
 def predicted_depth_order(scene: Scene, camera: Camera, width: int,
@@ -28,6 +32,11 @@ def predicted_depth_order(scene: Scene, camera: Camera, width: int,
     nearest-upsamples it to full size and returns the stable argsort of
     its negation (deepest first).  Regrouping rays leaves every ray's
     result unchanged."""
+    with profiling.span("image.depth_order"):
+        return _depth_order(scene, camera, width, height, block)
+
+
+def _depth_order(scene, camera, width, height, block):
     lw = max(width // block, 1)
     lh = max(height // block, 1)
     o, d = cam.generate_rays(camera, lw, lh)
@@ -111,6 +120,13 @@ def render_image(scene: Scene, camera: Camera, width: int = 256,
     prepass depth permutation (predicted_depth_order); None turns it on
     for kernel renders on a GPU of at least 256x256.  One prepass
     serves every sample."""
+    with profiling.span("image.render", next(_renders)):
+        return _render(scene, camera, width, height, spp, jitter, chunks,
+                       engine, depth_sort)
+
+
+def _render(scene, camera, width, height, spp, jitter, chunks, engine,
+            depth_sort):
     n_pix = width * height
     if n_pix % chunks:
         raise ValueError("chunks must divide width * height")

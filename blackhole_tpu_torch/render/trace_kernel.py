@@ -50,6 +50,7 @@ from blackhole_tpu_torch.integrate import steppers as sp_mod
 from blackhole_tpu_torch.metrics import derived
 from blackhole_tpu_torch.render import geodesic, trace
 from blackhole_tpu_torch.tangent_rules import jabs, jclip, jmax, jmin
+from blackhole_tpu_torch.utils import profiling
 
 N_SCAL = 12
 N_INP_PLANES = 16
@@ -611,9 +612,10 @@ def _launch_k1(scal, inp, disk_on, max_steps, adaptive, track):
     if n == 0:
         return out
     with torch.cuda.device(inp.device):
-        cuda_lib.trace_planes(scal, inp, out, n, max_steps, disk_on,
-                              adaptive, track,
-                              torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        with profiling.span("kernel.k1", launches + 1):
+            cuda_lib.trace_planes(scal, inp, out, n, max_steps, disk_on,
+                                  adaptive, track, stream)
     launches += 1
     track_launches += int(track)
     return out
@@ -634,10 +636,12 @@ def _launch_k2(scal, dscals, inp, dinps, disk_enabled, max_steps, adaptive,
     buf = torch.empty(((1 + k) * n_out(track), n), dtype=torch.float32,
                       device=inp.device)
     with torch.cuda.device(inp.device):
-        cuda_lib.trace_planes_fwdgrad(
-            scal, dscals, inp, dinps, buf, n, k, max_steps, disk_enabled,
-            adaptive, track, torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        with profiling.span("kernel.k2", fwdgrad_launches + 1):
+            cuda_lib.trace_planes_fwdgrad(
+                scal, dscals, inp, dinps, buf, n, k, max_steps,
+                disk_enabled, adaptive, track, stream,
+            )
     return buf
 
 
@@ -803,22 +807,24 @@ def trace_rays_kernel(origins, directions, scene: Scene, order=None) -> Hit:
     first, see image.predicted_depth_order); the Hit is always in the
     caller's ray order.  With shadow_softness > 0 the capture margin
     comes from the caller-order rays, outside the kernel."""
-    args = planes_args(scene)
-    batch_shape = origins.shape[:-1]
-    o = origins.to(torch.float32).reshape(-1, 3)
-    d = directions.to(torch.float32).reshape(-1, 3)
-    n = o.shape[0]
-    o0, d0 = o, d
-    inv_order = None
-    if order is not None:
-        o, d = o[order], d[order]
-        inv_order = torch.argsort(order)
-    scal, inp = prepare(o, d, scene)
+    with profiling.span("kernel.prepare"):
+        args = planes_args(scene)
+        batch_shape = origins.shape[:-1]
+        o = origins.to(torch.float32).reshape(-1, 3)
+        d = directions.to(torch.float32).reshape(-1, 3)
+        n = o.shape[0]
+        o0, d0 = o, d
+        inv_order = None
+        if order is not None:
+            o, d = o[order], d[order]
+            inv_order = torch.argsort(order)
+        scal, inp = prepare(o, d, scene)
     out = _Planes.apply(scal, inp, *args)
-    L = _L_of(scene, o0, d0) if _needs_L(scene) else None
-    margin = (trace.compute_capture_margin(o0, d0, scene) if _soft(scene)
-              else None)
-    return postprocess(out, n, batch_shape, scene, inv_order, L, margin)
+    with profiling.span("kernel.finish"):
+        L = _L_of(scene, o0, d0) if _needs_L(scene) else None
+        margin = (trace.compute_capture_margin(o0, d0, scene)
+                  if _soft(scene) else None)
+        return postprocess(out, n, batch_shape, scene, inv_order, L, margin)
 
 
 def _disk_on(scene: Scene) -> bool:
@@ -872,41 +878,50 @@ def prepare_fwdgrad(origins, directions, scene: Scene, tangents, order=None):
         # memory, such as broadcast camera origins.
         return x.to(torch.float32).reshape(-1, 3).contiguous()
 
-    o, d = rays(origins), rays(directions)
-    n = o.shape[0]
-    o0, d0 = o, d  # caller order
-    inv_order = None
-    if order is not None:
-        o, d = o[order], d[order]
-        inv_order = torch.argsort(order)
-
     def pre(s, o_, d_):
         return prepare(o_, d_, s)
 
-    scal, inp = pre(scene, o, d)
-    dscals, dinps, ray_tangents = [], [], []
-    for tan in tangents:
-        if isinstance(tan, tuple) and len(tan) == 3:
-            ds, do, dd = tan[0], rays(tan[1]), rays(tan[2])
-        else:
-            ds, do, dd = tan, torch.zeros_like(o0), torch.zeros_like(d0)
-        ray_tangents.append((ds, do, dd))
+    with profiling.span("fwdgrad.prepare"):
+        o, d = rays(origins), rays(directions)
+        n = o.shape[0]
+        o0, d0 = o, d  # caller order
+        inv_order = None
         if order is not None:
-            do, dd = do[order], dd[order]
-        _, (dscal, dinp) = jvp(pre, (scene, o, d), (ds, do, dd))
-        dscals.append(dscal)
-        dinps.append(dinp)
-    planes_in = (scal, _f32(torch.stack(dscals)), inp,
-                 _f32(torch.stack(dinps)))
+            o, d = o[order], d[order]
+            inv_order = torch.argsort(order)
+        scal, inp = pre(scene, o, d)
+        dscals, dinps, ray_tangents = [], [], []
+        for i, tan in enumerate(tangents):
+            with profiling.span("fwdgrad.jvp", i):
+                if isinstance(tan, tuple) and len(tan) == 3:
+                    ds, do, dd = tan[0], rays(tan[1]), rays(tan[2])
+                else:
+                    ds, do, dd = (tan, torch.zeros_like(o0),
+                                  torch.zeros_like(d0))
+                ray_tangents.append((ds, do, dd))
+                if order is not None:
+                    do, dd = do[order], dd[order]
+                _, (dscal, dinp) = jvp(pre, (scene, o, d), (ds, do, dd))
+            dscals.append(dscal)
+            dinps.append(dinp)
+        planes_in = (scal, _f32(torch.stack(dscals)), inp,
+                     _f32(torch.stack(dinps)))
 
     def finish(out, douts):
+        with profiling.span("fwdgrad.finish"):
+            return _finish(out, douts)
+
+    def _finish(out, douts):
         if not _needs_L(scene):
             def post(out_, s):
                 return postprocess(out_, n, batch_shape, s, inv_order)
 
-            return post(out, scene), [
-                jvp(post, (out, scene), (dout, ds))[1]
-                for dout, (ds, _, _) in zip(douts, ray_tangents)]
+            dhits = []
+            for i, (dout, (ds, _, _)) in enumerate(zip(douts,
+                                                       ray_tangents)):
+                with profiling.span("fwdgrad.jvp", i):
+                    dhits.append(jvp(post, (out, scene), (dout, ds))[1])
+            return post(out, scene), dhits
 
         soft = _soft(scene)
         if soft:
@@ -924,14 +939,15 @@ def prepare_fwdgrad(origins, directions, scene: Scene, tangents, order=None):
 
         L = _L_of(scene, o0, d0)
         dhits = []
-        for dout, rtan in zip(douts, ray_tangents):
-            # dL and dm ride the jvp so the Kerr-mode shading and the
-            # analytic shadow boundary see their tangents.
-            _, dL = jvp(_L_of, (scene, o0, d0), rtan)
-            dm = (jvp(margin_of, (scene, o0, d0), rtan)[1] if soft
-                  else torch.zeros_like(m_arr))
-            dhits.append(jvp(post_L, (out, scene, L, m_arr),
-                             (dout, rtan[0], dL, dm))[1])
+        for i, (dout, rtan) in enumerate(zip(douts, ray_tangents)):
+            with profiling.span("fwdgrad.jvp", i):
+                # dL and dm ride the jvp so the Kerr-mode shading and the
+                # analytic shadow boundary see their tangents.
+                _, dL = jvp(_L_of, (scene, o0, d0), rtan)
+                dm = (jvp(margin_of, (scene, o0, d0), rtan)[1] if soft
+                      else torch.zeros_like(m_arr))
+                dhits.append(jvp(post_L, (out, scene, L, m_arr),
+                                 (dout, rtan[0], dL, dm))[1])
         return post_L(out, scene, L, m_arr), dhits
 
     return planes_in, finish

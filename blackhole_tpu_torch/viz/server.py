@@ -30,6 +30,7 @@ Run:  python -m blackhole_tpu_torch.cli serve [--port 8000]
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import threading
 import time
@@ -59,13 +60,17 @@ class RenderServer:
         self._tier = "startup"
         self._render_ms = 0.0
         self._dirty = True  # restart the ladder (param change)
+        self._applied = 0  # commands applied that changed the state
         self._running = True
         self._status = "ready"
         self.error: BaseException | None = None
         # One record per published frame (the newest 4096): its seq,
         # tier, publish time (time.perf_counter), render_ms (to the
         # frame's uint8 on the host), the stages' ms (profiling.Stages:
-        # trace, accumulate, particles, readback), encode_ms, frame_ms.
+        # trace, accumulate, particles, readback), encode_ms, frame_ms,
+        # lock_ms (the render thread's waits for the lock in the frame)
+        # and stale (a command changed the state while the frame was
+        # rendered: it was superseded before it was shown).
         self._timings = collections.deque(maxlen=4096)
 
     # ---- command side (HTTP handler threads) ----
@@ -74,6 +79,7 @@ class RenderServer:
             action = self.state.apply(line)
             if action == "changed":
                 self._dirty = True
+                self._applied += 1
                 self._status = f"applied: {line.strip()}"
             elif action.startswith("error"):
                 self._status = action
@@ -110,26 +116,45 @@ class RenderServer:
             self._running = False
 
     # ---- render side (one background thread; owns the device) ----
-    def _publish(self, frame, tier: str, t0: float, stages):
+    @contextlib.contextmanager
+    def _held(self, waits: list):
+        """The lock, taken by the render thread: the wait is a
+        frame.lock span, its length appended to waits (ns)."""
+        with profiling.span("frame.lock") as wait:
+            self._lock.acquire()
+        waits.append(wait.ns)
+        try:
+            yield
+        finally:
+            self._lock.release()
+
+    def _publish(self, frame, tier: str, t0: float, stages, waits: list,
+                 applied: int) -> int:
         """Bring the frame (an (H, W, 3) float tensor) to the host as
         uint8, the JAX package's clip(frame * 255, 0, 255) truncated,
-        encode it and make it current.  t0: the frame's start
-        (time.perf_counter); stages: its profiling.Stages."""
+        encode it and make it current; returns its seq.  t0: the frame's
+        start (time.perf_counter); stages: its profiling.Stages; waits:
+        its lock waits so far (ns); applied: the count of applied
+        commands when it began."""
         u8 = (frame * 255.0).clamp(0.0, 255.0).to(torch.uint8).cpu().numpy()
         render_s = time.perf_counter() - t0
         stages.mark("readback")
         t1 = time.perf_counter()
-        png = viz_io.encode_png(u8)
+        with profiling.span("frame.encode"):
+            png = viz_io.encode_png(u8)
         t2 = time.perf_counter()
         record = {"tier": tier, "t": t2, "render_ms": render_s * 1e3,
                   **stages.ms(), "encode_ms": (t2 - t1) * 1e3,
                   "frame_ms": (t2 - t0) * 1e3}
-        with self._lock:
+        with self._held(waits):
             self._png = png
             self._seq += 1
             self._tier = tier
             self._render_ms = render_s * 1000.0
-            self._timings.append({"seq": self._seq, **record})
+            self._timings.append({"seq": self._seq, **record,
+                                  "lock_ms": sum(waits) / 1e6,
+                                  "stale": self._applied != applied})
+            return self._seq
 
     def render_loop(self, max_frames: int | None = None):
         """Progressive render loop, run by the render thread.
@@ -153,52 +178,56 @@ class RenderServer:
         psystem = None  # the particle pool, made on first use
         ladder = iter(animate.QUALITY_LADDER)
         while True:
-            with self._lock:
-                if not self._running:
-                    return
-                if self._dirty:
-                    ladder = iter(animate.QUALITY_LADDER)
-                    history = None
-                    accum_idx = 0
-                    jitter_idx = 0
-                    self._dirty = False
-                scene = self.state.scene()
-                camera = self.state.camera()
-                particles = self.state.particles
-            t0 = time.perf_counter()
-            stages = profiling.Stages(self.state.device)
-            tier = next(ladder, None)
-            if tier is not None:
-                divisor, steps = tier
-                frame = animate.tier_frame(scene, camera, self.width,
-                                           self.height, divisor, steps)
-                stages.mark("trace")
-                tier_label = f"1/{divisor}"
-            else:
-                new = viewer.accumulation_frame(
-                    scene, camera, self.width, self.height, jitter_idx,
-                    self.accum_frames)
-                jitter_idx += 1
-                stages.mark("trace")
-                if history is None:
-                    history, accum_idx = new, 1
+            with profiling.span("frame") as frame_span:
+                waits = []
+                with self._held(waits):
+                    if not self._running:
+                        return
+                    if self._dirty:
+                        ladder = iter(animate.QUALITY_LADDER)
+                        history = None
+                        accum_idx = 0
+                        jitter_idx = 0
+                        self._dirty = False
+                    scene = self.state.scene()
+                    camera = self.state.camera()
+                    particles = self.state.particles
+                    applied = self._applied
+                t0 = time.perf_counter()
+                stages = profiling.Stages(self.state.device)
+                tier = next(ladder, None)
+                if tier is not None:
+                    divisor, steps = tier
+                    frame = animate.tier_frame(scene, camera, self.width,
+                                               self.height, divisor, steps)
+                    stages.mark("trace")
+                    tier_label = f"1/{divisor}"
                 else:
-                    history, _ = image_mod.temporal_accumulate(
-                        history, new, accum_idx,
-                        max_frames=self.accum_frames,
-                    )
-                    # temporal_accumulate's index, kept on the host.
-                    accum_idx = min(accum_idx + 1, self.accum_frames)
-                stages.mark("accumulate")
-                frame = history
-                tier_label = f"full+{accum_idx}"
-            if particles:
-                frame, psystem = self._overlay_particles(
-                    frame, psystem, scene, camera)
-                stages.mark("particles")
-            else:
-                psystem = None
-            self._publish(frame, tier_label, t0, stages)
+                    new = viewer.accumulation_frame(
+                        scene, camera, self.width, self.height, jitter_idx,
+                        self.accum_frames)
+                    jitter_idx += 1
+                    stages.mark("trace")
+                    if history is None:
+                        history, accum_idx = new, 1
+                    else:
+                        history, _ = image_mod.temporal_accumulate(
+                            history, new, accum_idx,
+                            max_frames=self.accum_frames,
+                        )
+                        # temporal_accumulate's index, kept on the host.
+                        accum_idx = min(accum_idx + 1, self.accum_frames)
+                    stages.mark("accumulate")
+                    frame = history
+                    tier_label = f"full+{accum_idx}"
+                if particles:
+                    frame, psystem = self._overlay_particles(
+                        frame, psystem, scene, camera)
+                    stages.mark("particles")
+                else:
+                    psystem = None
+                frame_span.key = self._publish(frame, tier_label, t0, stages,
+                                               waits, applied)
             frames += 1
             if max_frames is not None and frames >= max_frames:
                 return

@@ -2298,9 +2298,10 @@ def check_served_session(dev, width=SERVED["width"], height=SERVED["height"],
         launched = trace_kernel.launches - sum(frames["launches"])
         if tier == "full+1" and "first_full" not in frames:
             frames["first_full"] = frame.clone()
-        publish(self, frame, tier, *args)
+        seq = publish(self, frame, tier, *args)
         frames["launches"].append(launched)
         frames["recent"].append((self._png, frame.clone()))
+        return seq
 
     answered = []
     state = viewer.ViewerState(spin=SERVED["spin"], steps=steps, device=dev)

@@ -414,8 +414,9 @@ def running_server():
     publish = server.RenderServer._publish
 
     def record(self, frame, tier, *args):
-        publish(self, frame, tier, *args)
-        published[self._seq] = (frame.numpy().copy(), self._png, tier)
+        seq = publish(self, frame, tier, *args)
+        published[seq] = (frame.numpy().copy(), self._png, tier)
+        return seq
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(server.RenderServer, "_publish", record)

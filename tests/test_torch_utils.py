@@ -20,25 +20,6 @@ from blackhole_tpu_torch.utils import logging as bh_logging
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
 
-def test_timer_measure():
-    t = profiling.Timer("t")
-    out = t.measure(lambda x: x * 2, torch.ones(8), repeats=2)
-    assert len(t.samples) == 2
-    assert torch.equal(out, torch.full((8,), 2.0))
-    assert t.best <= t.mean
-    with t.time():
-        torch.ones(4).sum()
-    assert len(t.samples) == 3 and t.samples[-1] >= 0.0
-
-
-def test_rays_per_second_and_emit_metric(capsys):
-    assert profiling.rays_per_second(1000, 0.5) == 2000.0
-    line = profiling.emit_metric("m", 1.5, "u", vs_baseline=2.0)
-    assert json.loads(line) == {"metric": "m", "value": 1.5, "unit": "u",
-                                "vs_baseline": 2.0}
-    assert capsys.readouterr().out == line + "\n"
-
-
 def test_throttled_logger():
     lg = bh_logging.get_logger("blackhole_tpu_torch.test")
     records = []
@@ -60,19 +41,31 @@ def test_throttled_logger():
 
 
 def test_stages_and_trace(tmp_path):
-    """Stages on the CPU: one entry per mark after the first, in ms;
-    trace writes a Chrome trace holding the block's ops."""
-    stages = profiling.Stages("cpu")
-    torch.ones(64).cumsum(0)
-    stages.mark("a")
-    stages.mark("b")
+    """Stages on the CPU: one entry per mark after the first, in ms, and
+    a host span frame.<stage> per stage; trace writes a Chrome trace
+    holding the block's ops and the stages' spans, to log_dir or to a
+    new temporary directory."""
+    profiling.clear()
+    with profiling.trace(str(tmp_path)) as tr:
+        stages = profiling.Stages("cpu")
+        torch.ones(64).cumsum(0)
+        stages.mark("a")
+        stages.mark("b")
     ms = stages.ms()
     assert list(ms) == ["a_ms", "b_ms"] and min(ms.values()) >= 0.0
-    with profiling.trace(str(tmp_path)):
-        torch.ones(64).cumsum(0)
+    spans = [r for r in profiling.spans() if r.name.startswith("frame.")]
+    assert [r.name for r in spans] == ["frame.a", "frame.b"]
+    assert spans[0].end == spans[1].start
+    assert tr.path == str(tmp_path / "trace.json")
     events = json.loads((tmp_path / "trace.json").read_text())
-    assert any("cumsum" in e.get("name", "")
-               for e in events["traceEvents"])
+    names = [e.get("name", "") for e in events["traceEvents"]]
+    assert any("cumsum" in n for n in names)
+    assert {"frame.a", "frame.b"} <= set(names)
+    with profiling.trace() as tr:
+        torch.ones(8).sum()
+    assert os.path.isfile(tr.path) and tr.path.endswith("trace.json")
+    assert os.path.dirname(tr.path) != str(tmp_path)
+    profiling.clear()
 
 
 def test_checkpoint_roundtrip(tmp_path):
