@@ -7,8 +7,10 @@ forward and reverse mode through it are the JAX package's.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
+import threading
 
 import torch
 
@@ -24,6 +26,39 @@ from blackhole_tpu_torch.metrics import derived
 from blackhole_tpu_torch.tangent_rules import jabs, jclip, jmax, jmin
 
 log = logging.getLogger(__name__)
+
+# The equatorial test's outcome where the current thread decided it
+# beforehand (equatorial_decided).
+_decided = threading.local()
+
+
+def _equatorial_mask(disk):
+    return torch.abs(torch.sin(disk.inclination)) < 1e-6
+
+
+def equatorial(disk) -> bool:
+    """Whether every inclination of the disk is equatorial (|sin| <
+    1e-6), the test that picks the Kerr disk kinematics: read on the host
+    (a synchronisation on the card), or the value the current thread
+    fixed with equatorial_decided."""
+    fixed = getattr(_decided, "value", None)
+    if fixed is not None:
+        return fixed
+    return bool(torch.all(_equatorial_mask(disk)))
+
+
+@contextlib.contextmanager
+def equatorial_decided(value):
+    """Within the block, shading on the current thread takes `value`
+    (a bool; None: read the inclination) as the equatorial test's
+    outcome.  A CUDA graph's capture (render.trace_kernel) cannot read
+    the card, so its caller decides the test beforehand."""
+    old = getattr(_decided, "value", None)
+    _decided.value = value
+    try:
+        yield
+    finally:
+        _decided.value = old
 
 
 def temperature_to_rgb(temperature):
@@ -198,7 +233,7 @@ def shade_disk_hit(hit_pos, photon_dir, blackhole, disk, config, L=None):
     given, and the compat factors otherwise; "compat" always uses the
     flat-space Keplerian factors; "kerr" is auto that logs a warning when
     an inclined disk forces the compat fallback.  Eager calls decide the
-    equatorial test once from the inclination's value.  Under
+    equatorial test once on the host (equatorial).  Under
     torch.export the inclination is a runtime input of the program, so
     both kinematic paths are computed and torch.where picks per batch,
     as the JAX package does for a traced inclination.
@@ -230,16 +265,13 @@ def shade_disk_hit(hit_pos, photon_dir, blackhole, disk, config, L=None):
         r_sph = torch.linalg.vector_norm(hit_pos, dim=-1)
         return doppler_c, derived.time_dilation(r_sph, blackhole.mass)
 
-    def equatorial():
-        return torch.abs(torch.sin(disk.inclination)) < 1e-6
-
     if use_kerr and torch.compiler.is_exporting():
         doppler_k, grav_k = kerr_factors()
         doppler_c, grav_c = compat_factors()
-        doppler = torch.where(equatorial(), doppler_k, doppler_c)
-        grav = torch.where(equatorial(), grav_k, grav_c)
+        doppler = torch.where(_equatorial_mask(disk), doppler_k, doppler_c)
+        grav = torch.where(_equatorial_mask(disk), grav_k, grav_c)
     else:
-        static_eq = use_kerr and bool(torch.all(equatorial()))
+        static_eq = use_kerr and equatorial(disk)
         if use_kerr and mode == "kerr" and not static_eq:
             log.warning(
                 "disk_kinematics='kerr' requested for an inclined disk: "

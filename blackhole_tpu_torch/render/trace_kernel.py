@@ -31,6 +31,13 @@ Tangent layouts: dscals (n_tan, 12) and dinps (n_tan, 16, n) carry one
 tangent direction per row (dL rides in plane 5 of dinp); the tangent
 planes come back as douts (n_tan, P, n).
 
+Host stages around K2 (prepare_fwdgrad and its finish: the null init,
+the shading and their per-tangent jvps): on the card each is a CUDA
+graph of its static signature (fwdgrad_signature), captured at the
+signature's first call and replayed after, so the host does not launch
+their ops one by one; K2 is launched eagerly between them.  On the CPU
+they run eagerly.
+
 Forward mode only: reverse mode through the planes pass raises
 NotImplementedError (at trace_planes when called directly with a tensor
 that requires grad, at .backward() through trace_rays_kernel), so no
@@ -39,8 +46,13 @@ gradient can come back silently as zero.
 
 from __future__ import annotations
 
+import collections
+import functools
+import itertools
+
 import torch
 from torch.func import jvp
+from torch.utils import _pytree as pytree
 
 from blackhole_tpu_torch.constants import EPSILON, HORIZON_CAPTURE_FACTOR
 from blackhole_tpu_torch.geom import coords
@@ -48,7 +60,7 @@ from blackhole_tpu_torch.geom.types import Hit, Integrator, RayResult, Scene
 from blackhole_tpu_torch.integrate import sensitivity
 from blackhole_tpu_torch.integrate import steppers as sp_mod
 from blackhole_tpu_torch.metrics import derived
-from blackhole_tpu_torch.render import geodesic, trace
+from blackhole_tpu_torch.render import geodesic, shading, trace
 from blackhole_tpu_torch.tangent_rules import jabs, jclip, jmax, jmin
 from blackhole_tpu_torch.utils import profiling
 
@@ -869,85 +881,269 @@ def prepare_fwdgrad(origins, directions, scene: Scene, tangents, order=None):
     planes and takes each Hit tangent from torch.func.jvp of postprocess
     given the tangent planes (dL and, under shadow_softness > 0, the
     capture margin's tangent dm from those of the caller-order L and
-    margin along the ray tangents)."""
+    margin along the ray tangents).
+
+    On the card both stages run as CUDA graphs of their static signature
+    (fwdgrad_signature): the first call of a signature runs them eagerly
+    and captures each, later calls replay them (_FwdgradGraphs).  Each
+    call returns tensors of its own, and finish uses its own call's
+    tensors.  The planes pass between them is launched eagerly."""
     _check_integrator(scene)
     batch_shape = origins.shape[:-1]
-
-    def rays(x):
-        # torch.func.jvp refuses primals and tangents whose elements share
-        # memory, such as broadcast camera origins.
-        return x.to(torch.float32).reshape(-1, 3).contiguous()
-
-    def pre(s, o_, d_):
-        return prepare(o_, d_, s)
-
+    args = (origins, directions, scene, list(tangents), order)
+    graphs = None
     with profiling.span("fwdgrad.prepare"):
-        o, d = rays(origins), rays(directions)
-        n = o.shape[0]
-        o0, d0 = o, d  # caller order
-        inv_order = None
-        if order is not None:
-            o, d = o[order], d[order]
-            inv_order = torch.argsort(order)
-        scal, inp = pre(scene, o, d)
-        dscals, dinps, ray_tangents = [], [], []
-        for i, tan in enumerate(tangents):
-            with profiling.span("fwdgrad.jvp", i):
-                if isinstance(tan, tuple) and len(tan) == 3:
-                    ds, do, dd = tan[0], rays(tan[1]), rays(tan[2])
-                else:
-                    ds, do, dd = (tan, torch.zeros_like(o0),
-                                  torch.zeros_like(d0))
-                ray_tangents.append((ds, do, dd))
-                if order is not None:
-                    do, dd = do[order], dd[order]
-                _, (dscal, dinp) = jvp(pre, (scene, o, d), (ds, do, dd))
-            dscals.append(dscal)
-            dinps.append(dinp)
-        planes_in = (scal, _f32(torch.stack(dscals)), inp,
-                     _f32(torch.stack(dinps)))
+        if origins.device.type == "cpu":
+            planes_in, ctx = _prepare_stages(*args)
+        else:
+            graphs = _fwdgrad_graphs(args)
+            planes_in, ctx = graphs.prepare(args)
 
     def finish(out, douts):
         with profiling.span("fwdgrad.finish"):
-            return _finish(out, douts)
-
-    def _finish(out, douts):
-        if not _needs_L(scene):
-            def post(out_, s):
-                return postprocess(out_, n, batch_shape, s, inv_order)
-
-            dhits = []
-            for i, (dout, (ds, _, _)) in enumerate(zip(douts,
-                                                       ray_tangents)):
-                with profiling.span("fwdgrad.jvp", i):
-                    dhits.append(jvp(post, (out, scene), (dout, ds))[1])
-            return post(out, scene), dhits
-
-        soft = _soft(scene)
-        if soft:
-            # valid is a primal-only predicate, closed over.
-            m_arr, m_valid = trace.compute_capture_margin(o0, d0, scene)
-        else:
-            m_arr = torch.zeros_like(o0[:, 0])
-
-        def margin_of(s, o_, d_):
-            return trace.compute_capture_margin(o_, d_, s)[0]
-
-        def post_L(out_, s, L_, m_):
-            margin = (m_, m_valid) if soft else None
-            return postprocess(out_, n, batch_shape, s, inv_order, L_, margin)
-
-        L = _L_of(scene, o0, d0)
-        dhits = []
-        for i, (dout, rtan) in enumerate(zip(douts, ray_tangents)):
-            with profiling.span("fwdgrad.jvp", i):
-                # dL and dm ride the jvp so the Kerr-mode shading and the
-                # analytic shadow boundary see their tangents.
-                _, dL = jvp(_L_of, (scene, o0, d0), rtan)
-                dm = (jvp(margin_of, (scene, o0, d0), rtan)[1] if soft
-                      else torch.zeros_like(m_arr))
-                dhits.append(jvp(post_L, (out, scene, L, m_arr),
-                                 (dout, rtan[0], dL, dm))[1])
-        return post_L(out, scene, L, m_arr), dhits
+            if graphs is None:
+                return _finish_stages(batch_shape, out, douts, scene, ctx)
+            return graphs.finish((out, douts, scene, ctx))
 
     return planes_in, finish
+
+
+def _rays(x):
+    # torch.func.jvp refuses primals and tangents whose elements share
+    # memory, such as broadcast camera origins.
+    return x.to(torch.float32).reshape(-1, 3).contiguous()
+
+
+def _pre(s, o_, d_):
+    return prepare(o_, d_, s)
+
+
+def _prepare_stages(origins, directions, scene, tangents, order):
+    """prepare_fwdgrad's stages: (planes_in, ctx), ctx = (o0, d0,
+    inv_order, ray_tangents), what _finish_stages reads of them."""
+    o, d = _rays(origins), _rays(directions)
+    o0, d0 = o, d  # caller order
+    inv_order = None
+    if order is not None:
+        o, d = o[order], d[order]
+        inv_order = torch.argsort(order)
+    scal, inp = _pre(scene, o, d)
+    dscals, dinps, ray_tangents = [], [], []
+    for i, tan in enumerate(tangents):
+        with profiling.span("fwdgrad.jvp", i):
+            if isinstance(tan, tuple) and len(tan) == 3:
+                ds, do, dd = tan[0], _rays(tan[1]), _rays(tan[2])
+            else:
+                ds, do, dd = tan, torch.zeros_like(o0), torch.zeros_like(d0)
+            ray_tangents.append((ds, do, dd))
+            if order is not None:
+                do, dd = do[order], dd[order]
+            _, (dscal, dinp) = jvp(_pre, (scene, o, d), (ds, do, dd))
+        dscals.append(dscal)
+        dinps.append(dinp)
+    planes_in = (scal, _f32(torch.stack(dscals)), inp,
+                 _f32(torch.stack(dinps)))
+    return planes_in, (o0, d0, inv_order, ray_tangents)
+
+
+def _finish_stages(batch_shape, out, douts, scene, ctx):
+    """finish's stages on the planes out, douts and ctx of
+    _prepare_stages: (hit, [hit tangent per direction])."""
+    o0, d0, inv_order, ray_tangents = ctx
+    n = o0.shape[0]
+    if not _needs_L(scene):
+        def post(out_, s):
+            return postprocess(out_, n, batch_shape, s, inv_order)
+
+        dhits = []
+        for i, (dout, (ds, _, _)) in enumerate(zip(douts, ray_tangents)):
+            with profiling.span("fwdgrad.jvp", i):
+                dhits.append(jvp(post, (out, scene), (dout, ds))[1])
+        return post(out, scene), dhits
+
+    soft = _soft(scene)
+    if soft:
+        # valid is a primal-only predicate, closed over.
+        m_arr, m_valid = trace.compute_capture_margin(o0, d0, scene)
+    else:
+        m_arr = torch.zeros_like(o0[:, 0])
+
+    def margin_of(s, o_, d_):
+        return trace.compute_capture_margin(o_, d_, s)[0]
+
+    def post_L(out_, s, L_, m_):
+        margin = (m_, m_valid) if soft else None
+        return postprocess(out_, n, batch_shape, s, inv_order, L_, margin)
+
+    L = _L_of(scene, o0, d0)
+    dhits = []
+    for i, (dout, rtan) in enumerate(zip(douts, ray_tangents)):
+        with profiling.span("fwdgrad.jvp", i):
+            # dL and dm ride the jvp so the Kerr-mode shading and the
+            # analytic shadow boundary see their tangents.
+            _, dL = jvp(_L_of, (scene, o0, d0), rtan)
+            dm = (jvp(margin_of, (scene, o0, d0), rtan)[1] if soft
+                  else torch.zeros_like(m_arr))
+            dhits.append(jvp(post_L, (out, scene, L, m_arr),
+                             (dout, rtan[0], dL, dm))[1])
+    return post_L(out, scene, L, m_arr), dhits
+
+
+# ---- CUDA graphs of the fwd+bwd host stages -----------------------------
+# Signatures of prepare_fwdgrad captured (graphs P and F) and calls that
+# replayed them, since the last reset.
+fwdgrad_captures = 0
+fwdgrad_replays = 0
+
+# Signatures whose graphs are kept; the least recently used goes first.
+MAX_FWDGRAD_GRAPHS = 4
+_FWDGRAD_GRAPHS = collections.OrderedDict()
+_slots = itertools.count()
+
+
+def fwdgrad_signature(origins, directions, scene: Scene, tangents,
+                      order=None):
+    """The static signature of prepare_fwdgrad's arguments: everything
+    its stages decide on the host, the key of their CUDA graphs.
+
+    It holds the pytree structure of (origins, directions, scene,
+    tangents, order), which carries the scene's static fields (and so
+    planes_args, _needs_L and _soft), the number of tangents, scene
+    tangents against (dscene, dorigins, ddirections) triples, and
+    whether order is given; the shape, dtype and device of each tensor
+    leaf, and the value of one that lies on the CPU while the rays do not
+    (a capture bakes such a value into the kernels' arguments); the
+    value of every other leaf; and shading's equatorial test where the
+    disk kinematics read it (on the card, a synchronisation)."""
+    leaves, spec = pytree.tree_flatten((origins, directions, scene,
+                                        list(tangents), order))
+    rays_elsewhere = origins.device.type != "cpu"
+
+    def key(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        k = (tuple(x.shape), x.dtype, x.device)
+        if x.device.type == "cpu" and rays_elsewhere:
+            k += (tuple(x.reshape(-1).tolist()),)
+        return k
+
+    eq = (shading.equatorial(scene.disk)
+          if scene.config.disk_kinematics in ("auto", "kerr") else None)
+    return spec, tuple(key(x) for x in leaves), eq
+
+
+def _fwdgrad_graphs(args):
+    """The _FwdgradGraphs of args' signature, made (and the least
+    recently used dropped past MAX_FWDGRAD_GRAPHS) at its first call."""
+    key = fwdgrad_signature(*args)
+    graphs = _FWDGRAD_GRAPHS.get(key)
+    if graphs is None:
+        graphs = _FwdgradGraphs(next(_slots), args[0].shape[:-1], key[-1])
+        _FWDGRAD_GRAPHS[key] = graphs
+        while len(_FWDGRAD_GRAPHS) > MAX_FWDGRAD_GRAPHS:
+            _FWDGRAD_GRAPHS.popitem(last=False)
+    else:
+        _FWDGRAD_GRAPHS.move_to_end(key)
+    return graphs
+
+
+class _FwdgradGraphs:
+    """Graph P (_prepare_stages) and graph F (_finish_stages) of one
+    static signature, in one memory pool.  Each is captured at its first
+    use, right after an eager run of the same stages (their warm-up,
+    whose result that call returns), and replayed at every later use."""
+
+    def __init__(self, slot, batch_shape, equatorial):
+        self.slot = slot
+        self.equatorial = equatorial
+        self.finish_stages = functools.partial(_finish_stages, batch_shape)
+        self.p = self.f = None
+
+    def prepare(self, args):
+        global fwdgrad_captures, fwdgrad_replays
+        if self.p is not None:
+            with profiling.span("fwdgrad.replay", self.slot):
+                fwdgrad_replays += 1
+                return self.p(args)
+        result = _prepare_stages(*args)
+        with profiling.span("fwdgrad.capture", self.slot):
+            self.p = _Graph(_prepare_stages, args, None, self.equatorial)
+        fwdgrad_captures += 1
+        return result
+
+    def finish(self, args):
+        if self.f is not None:
+            with profiling.span("fwdgrad.replay", self.slot):
+                return self.f(args)
+        result = self.finish_stages(*args)
+        with profiling.span("fwdgrad.capture", self.slot):
+            self.f = _Graph(self.finish_stages, args, self.p.graph.pool(),
+                            self.equatorial)
+        return result
+
+
+def _plain_inputs(tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the fwd+bwd host stages replay CUDA graphs, which carry no "
+            "autograd history: pass tensors that do not require grad"
+        )
+
+
+class _Graph:
+    """fn(*args) as one CUDA graph, captured over static copies of args'
+    tensors on the card; every other leaf of args is part of the
+    signature, fixed at capture.  A call copies its args' card tensors
+    in, replays, and returns fresh outputs: an output that is an input
+    comes back as the caller's own tensor, every other one as a copy of
+    the graph's (which the next replay overwrites)."""
+
+    def __init__(self, fn, args, pool, equatorial):
+        leaves, spec = pytree.tree_flatten(args)
+        self.idx = [i for i, x in enumerate(leaves) if _on_card(x)]
+        _plain_inputs([leaves[i] for i in self.idx])
+        static = list(leaves)
+        for i in self.idx:
+            x = leaves[i]
+            static[i] = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        self.static = [static[i] for i in self.idx]
+        self.graph = torch.cuda.CUDAGraph()
+        with shading.equatorial_decided(equatorial), torch.cuda.graph(
+                self.graph, pool=pool, capture_error_mode="thread_local"):
+            out = fn(*pytree.tree_unflatten(static, spec))
+        outs, self.out_spec = pytree.tree_flatten(out)
+        by_id = {id(t): i for i, t in enumerate(static)
+                 if isinstance(t, torch.Tensor)}
+        # Per output: ("in", leaf index) for an input, ("copy", k) for the
+        # k-th of self.outs, ("value", v) for a non-tensor.
+        self.plan, self.outs = [], []
+        for t in outs:
+            if not isinstance(t, torch.Tensor):
+                self.plan.append(("value", t))
+            elif id(t) in by_id:
+                self.plan.append(("in", by_id[id(t)]))
+            else:
+                self.plan.append(("copy", len(self.outs)))
+                self.outs.append(t)
+
+    def __call__(self, args):
+        leaves = pytree.tree_leaves(args)
+        src = [leaves[i] for i in self.idx]
+        for s, x in zip(self.static, src):
+            if s.shape != x.shape or s.dtype != x.dtype:
+                raise ValueError(
+                    f"a {x.dtype} input of shape {tuple(x.shape)} where "
+                    f"the graph was captured with {s.dtype} "
+                    f"{tuple(s.shape)}")
+        _plain_inputs(src)
+        torch._foreach_copy_(self.static, src)
+        self.graph.replay()
+        fresh = [torch.empty_like(t) for t in self.outs]
+        torch._foreach_copy_(fresh, self.outs)
+        return pytree.tree_unflatten(
+            [leaves[v] if kind == "in" else fresh[v] if kind == "copy"
+             else v for kind, v in self.plan], self.out_spec)
+
+
+def _on_card(x):
+    return isinstance(x, torch.Tensor) and x.device.type != "cpu"
