@@ -24,37 +24,50 @@ _renders = itertools.count()  # render_image's calls: its span's key
 
 
 def predicted_depth_order(scene: Scene, camera: Camera, width: int,
-                          height: int, block: int = 8):
+                          height: int, block: int = 8, rows=None):
     """Depth-sort permutation for the (width x height) pixel rays.
 
     Traces a (width/block x height/block) prepass through the same
     kernel, widens each pixel's step count with a 3x3 max filter,
     nearest-upsamples it to full size and returns the stable argsort of
     its negation (deepest first).  Regrouping rays leaves every ray's
-    result unchanged."""
+    result unchanged.
+
+    rows: a slice of image rows (a rank's block): the prepass traces
+    only the prepass rows that cover them, the filter widens over those
+    alone (replicating the block's edges), and the permutation is of
+    the block's rays, (rows.stop - rows.start) * width of them.  None:
+    the whole image."""
     with profiling.span("image.depth_order"):
-        return _depth_order(scene, camera, width, height, block)
+        return _depth_order(scene, camera, width, height, block,
+                            rows or slice(0, height))
 
 
-def _depth_order(scene, camera, width, height, block):
+def _depth_order(scene, camera, width, height, block, rows):
     lw = max(width // block, 1)
     lh = max(height // block, 1)
-    o, d = cam.generate_rays(camera, lw, lh)
+    # The prepass rows over the block; image rows past lh * block take
+    # the last one.
+    l0 = min(rows.start // block, lh - 1)
+    l1 = min(-(-rows.stop // block), lh)
+    dev = camera.position.device
+    o, d = cam.generate_rays_for_rows(camera, lw, lh,
+                                      torch.arange(l0, l1, device=dev))
     hit = trace_kernel.trace_rays_kernel(o.reshape(-1, 3), d.reshape(-1, 3),
                                          scene)
-    s = hit.steps.reshape(lh, lw).to(torch.float32)
+    n = l1 - l0
+    s = hit.steps.reshape(n, lw).to(torch.float32)
     p = F.pad(s[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
     s3 = s
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             s3 = torch.maximum(
-                s3, p[1 + dy:1 + dy + lh, 1 + dx:1 + dx + lw]
+                s3, p[1 + dy:1 + dy + n, 1 + dx:1 + dx + lw]
             )
-    pred = s3.repeat_interleave(block, 0).repeat_interleave(block, 1)
-    pred = pred[:height, :width]
-    if pred.shape != (height, width):  # size not a multiple of block
-        pad = (0, width - pred.shape[1], 0, height - pred.shape[0])
-        pred = F.pad(pred[None, None], pad, mode="replicate")[0, 0]
+    ys = torch.clamp(torch.arange(rows.start, rows.stop, device=dev) // block,
+                     max=lh - 1) - l0
+    xs = torch.clamp(torch.arange(width, device=dev) // block, max=lw - 1)
+    pred = s3[ys][:, xs]
     return torch.argsort(-pred.reshape(-1), stable=True)
 
 

@@ -335,11 +335,13 @@ class Stages:
     records a CUDA event on the card (read by ms() once the iteration
     has synchronised) and the host clock elsewhere.  The first mark,
     "start", is taken at construction.  Each later mark also records
-    the host span frame.<stage> over the host's time since the previous
-    mark (the spans run in the stage are its children)."""
+    the host span <prefix>.<stage> over the host's time since the
+    previous mark (the spans run in the stage are its children); with
+    prefix None it records none (the caller spans its stages itself)."""
 
-    def __init__(self, device):
+    def __init__(self, device, prefix: str | None = "frame"):
         self._cuda = torch.device(device).type == "cuda"
+        self._prefix = prefix
         self._marks = []
         self._host = _now()
         self.mark("start")
@@ -350,10 +352,10 @@ class Stages:
             point.record()
         else:
             point = time.perf_counter()
-        if self._marks:
+        if self._marks and self._prefix is not None:
             now = _now()
-            _ring.append((f"frame.{name}", None, _ident(), self._host, now,
-                          False))
+            _ring.append((f"{self._prefix}.{name}", None, _ident(),
+                          self._host, now, False))
             if len(_ring) > _LIMIT:
                 _cut_back()
             self._host = now
