@@ -31,12 +31,13 @@ Tangent layouts: dscals (n_tan, 12) and dinps (n_tan, 16, n) carry one
 tangent direction per row (dL rides in plane 5 of dinp); the tangent
 planes come back as douts (n_tan, P, n).
 
-Host stages around K2 (prepare_fwdgrad and its finish: the null init,
-the shading and their per-tangent jvps): on the card each is a CUDA
-graph of its static signature (fwdgrad_signature), captured at the
-signature's first call and replayed after, so the host does not launch
-their ops one by one; K2 is launched eagerly between them.  On the CPU
-they run eagerly.
+Host stages around K1 (trace_rays_kernel's: the null init and the
+depth order's gather, the shading) and around K2 (prepare_fwdgrad and
+its finish: the same with their per-tangent jvps): on the card each is a
+CUDA graph of its static signature (k1_signature, fwdgrad_signature),
+captured at the signature's first call and replayed after, so the host
+does not launch their ops one by one; the kernel is launched eagerly
+between them.  On the CPU they run eagerly.
 
 Forward mode only: reverse mode through the planes pass raises
 NotImplementedError (at trace_planes when called directly with a tensor
@@ -818,25 +819,52 @@ def trace_rays_kernel(origins, directions, scene: Scene, order=None) -> Hit:
     order: optional (n,) permutation of the flattened rays (deepest
     first, see image.predicted_depth_order); the Hit is always in the
     caller's ray order.  With shadow_softness > 0 the capture margin
-    comes from the caller-order rays, outside the kernel."""
+    comes from the caller-order rays, outside the kernel.
+
+    On the card the stages before and after the planes pass run as CUDA
+    graphs of their static signature (k1_signature): the first call of a
+    signature runs them eagerly and captures each, later calls replay
+    them.  K1 is launched eagerly between them.  CPU calls, torch.func
+    transforms, inputs that require grad and torch.export run the stages
+    eagerly (_graphable)."""
+    args = (origins, directions, scene, order)
     with profiling.span("kernel.prepare"):
-        args = planes_args(scene)
-        batch_shape = origins.shape[:-1]
-        o = origins.to(torch.float32).reshape(-1, 3)
-        d = directions.to(torch.float32).reshape(-1, 3)
-        n = o.shape[0]
-        o0, d0 = o, d
-        inv_order = None
-        if order is not None:
-            o, d = o[order], d[order]
-            inv_order = torch.argsort(order)
-        scal, inp = prepare(o, d, scene)
-    out = _Planes.apply(scal, inp, *args)
+        planes = planes_args(scene)
+        graphs = _k1_graphs(args)
+        if graphs is None:
+            scal, inp, inv_order = _k1_prepare_stages(*args)
+        else:
+            scal, inp, inv_order = graphs.prepare(args)
+    out = _Planes.apply(scal, inp, *planes)
     with profiling.span("kernel.finish"):
-        L = _L_of(scene, o0, d0) if _needs_L(scene) else None
-        margin = (trace.compute_capture_margin(o0, d0, scene)
-                  if _soft(scene) else None)
-        return postprocess(out, n, batch_shape, scene, inv_order, L, margin)
+        fin = (out, origins, directions, scene, inv_order)
+        if graphs is None:
+            return _k1_finish_stages(origins.shape[:-1], *fin)
+        return graphs.finish(fin)
+
+
+def _k1_prepare_stages(origins, directions, scene, order):
+    """trace_rays_kernel's stages before K1: (scal, inp, inv_order)."""
+    o = origins.to(torch.float32).reshape(-1, 3)
+    d = directions.to(torch.float32).reshape(-1, 3)
+    inv_order = None
+    if order is not None:
+        o, d = o[order], d[order]
+        inv_order = torch.argsort(order)
+    scal, inp = prepare(o, d, scene)
+    return scal, inp, inv_order
+
+
+def _k1_finish_stages(batch_shape, out, origins, directions, scene,
+                      inv_order):
+    """trace_rays_kernel's stages after K1 on its planes out: the Hit."""
+    o0 = origins.to(torch.float32).reshape(-1, 3)  # caller order
+    d0 = directions.to(torch.float32).reshape(-1, 3)
+    L = _L_of(scene, o0, d0) if _needs_L(scene) else None
+    margin = (trace.compute_capture_margin(o0, d0, scene)
+              if _soft(scene) else None)
+    return postprocess(out, o0.shape[0], batch_shape, scene, inv_order, L,
+                       margin)
 
 
 def _disk_on(scene: Scene) -> bool:
@@ -989,15 +1017,24 @@ def _finish_stages(batch_shape, out, douts, scene, ctx):
     return post_L(out, scene, L, m_arr), dhits
 
 
-# ---- CUDA graphs of the fwd+bwd host stages -----------------------------
-# Signatures of prepare_fwdgrad captured (graphs P and F) and calls that
-# replayed them, since the last reset.
+# ---- CUDA graphs of the host stages -------------------------------------
+# Signatures captured (graphs P and F) and calls that replayed P, since
+# the last reset: of prepare_fwdgrad (fwd+bwd) and of trace_rays_kernel
+# (K1).
 fwdgrad_captures = 0
 fwdgrad_replays = 0
+k1_captures = 0
+k1_replays = 0
 
 # Signatures whose graphs are kept; the least recently used goes first.
+# A served viewer session visits seven forward signatures (five ladder
+# tiers, the 1/2 tier's prepass, the accumulation frame) and the bench's
+# frames two more (its 128x128 prepass, its 1024x1024 render in depth
+# order): twelve hold them all.
 MAX_FWDGRAD_GRAPHS = 4
+MAX_K1_GRAPHS = 12
 _FWDGRAD_GRAPHS = collections.OrderedDict()
+_K1_GRAPHS = collections.OrderedDict()
 _slots = itertools.count()
 
 
@@ -1015,9 +1052,20 @@ def fwdgrad_signature(origins, directions, scene: Scene, tangents,
     (a capture bakes such a value into the kernels' arguments); the
     value of every other leaf; and shading's equatorial test where the
     disk kinematics read it (on the card, a synchronisation)."""
-    leaves, spec = pytree.tree_flatten((origins, directions, scene,
-                                        list(tangents), order))
-    rays_elsewhere = origins.device.type != "cpu"
+    return _signature((origins, directions, scene, list(tangents), order),
+                      scene)
+
+
+def k1_signature(origins, directions, scene: Scene, order=None):
+    """The static signature of trace_rays_kernel's arguments, the key of
+    its stages' CUDA graphs: fwdgrad_signature's rule over (origins,
+    directions, scene, order)."""
+    return _signature((origins, directions, scene, order), scene)
+
+
+def _signature(tree, scene):
+    leaves, spec = pytree.tree_flatten(tree)
+    rays_elsewhere = leaves[0].device.type != "cpu"
 
     def key(x):
         if not isinstance(x, torch.Tensor):
@@ -1033,50 +1081,103 @@ def fwdgrad_signature(origins, directions, scene: Scene, tangents,
 
 
 def _fwdgrad_graphs(args):
-    """The _FwdgradGraphs of args' signature, made (and the least
-    recently used dropped past MAX_FWDGRAD_GRAPHS) at its first call."""
+    """The _GraphPair of prepare_fwdgrad's args' signature, made (and
+    the least recently used dropped past MAX_FWDGRAD_GRAPHS) at its first
+    call."""
     key = fwdgrad_signature(*args)
-    graphs = _FWDGRAD_GRAPHS.get(key)
+    return _lookup(_FWDGRAD_GRAPHS, MAX_FWDGRAD_GRAPHS, key, lambda slot: (
+        _GraphPair("fwdgrad", "fwdgrad", slot, _prepare_stages,
+                   functools.partial(_finish_stages, args[0].shape[:-1]),
+                   key[-1])))
+
+
+def _k1_graphs(args):
+    """The _GraphPair of trace_rays_kernel's args' signature, made (and
+    the least recently used dropped past MAX_K1_GRAPHS) at its first
+    call; None where the stages run eagerly."""
+    if not _graphable(args):
+        return None
+    key = k1_signature(*args)
+    return _lookup(_K1_GRAPHS, MAX_K1_GRAPHS, key, lambda slot: (
+        _GraphPair("kernel", "k1", slot, _k1_prepare_stages,
+                   functools.partial(_k1_finish_stages, args[0].shape[:-1]),
+                   key[-1])))
+
+
+def _lookup(cache, bound, key, make):
+    graphs = cache.get(key)
     if graphs is None:
-        graphs = _FwdgradGraphs(next(_slots), args[0].shape[:-1], key[-1])
-        _FWDGRAD_GRAPHS[key] = graphs
-        while len(_FWDGRAD_GRAPHS) > MAX_FWDGRAD_GRAPHS:
-            _FWDGRAD_GRAPHS.popitem(last=False)
+        graphs = cache[key] = make(next(_slots))
+        while len(cache) > bound:
+            cache.popitem(last=False)
     else:
-        _FWDGRAD_GRAPHS.move_to_end(key)
+        cache.move_to_end(key)
     return graphs
 
 
-class _FwdgradGraphs:
-    """Graph P (_prepare_stages) and graph F (_finish_stages) of one
-    static signature, in one memory pool.  Each is captured at its first
-    use, right after an eager run of the same stages (their warm-up,
-    whose result that call returns), and replayed at every later use."""
+def _graphable(args):
+    """Whether trace_rays_kernel's stages may replay CUDA graphs: every
+    tensor of args a plain tensor on the rays' CUDA device, none of them
+    requiring grad under grad mode (the eager path raises there), outside
+    torch.func transforms (whose tangents a replay would drop) and
+    outside torch.export and torch.compile (which trace the stages into
+    their programs)."""
+    if not _on_cuda(args[0]):
+        return False
+    if (torch.compiler.is_exporting() or torch.compiler.is_compiling()
+            or torch._C._functorch.peek_interpreter_stack() is not None):
+        return False
+    grad = torch.is_grad_enabled()
+    device = args[0].device
+    return all(x.device == device and not (grad and x.requires_grad)
+               for x in pytree.tree_leaves(args)
+               if isinstance(x, torch.Tensor))
 
-    def __init__(self, slot, batch_shape, equatorial):
+
+def _on_cuda(x):
+    return x.device.type == "cuda"
+
+
+def _count(counter):
+    globals()[counter] += 1
+
+
+class _GraphPair:
+    """Graph P (the stages before a kernel) and graph F (those after
+    it) of one static signature, in one memory pool.  Each is captured
+    at its first use, right after an eager run of the same stages (their
+    warm-up, whose result that call returns), and replayed at every
+    later use.  span prefixes the spans (<span>.capture, <span>.replay),
+    counter the module's counters (<counter>_captures,
+    <counter>_replays)."""
+
+    def __init__(self, span, counter, slot, prepare_stages, finish_stages,
+                 equatorial):
+        self.span = span
+        self.counter = counter
         self.slot = slot
+        self.prepare_stages = prepare_stages
+        self.finish_stages = finish_stages
         self.equatorial = equatorial
-        self.finish_stages = functools.partial(_finish_stages, batch_shape)
         self.p = self.f = None
 
     def prepare(self, args):
-        global fwdgrad_captures, fwdgrad_replays
         if self.p is not None:
-            with profiling.span("fwdgrad.replay", self.slot):
-                fwdgrad_replays += 1
+            with profiling.span(self.span + ".replay", self.slot):
+                _count(self.counter + "_replays")
                 return self.p(args)
-        result = _prepare_stages(*args)
-        with profiling.span("fwdgrad.capture", self.slot):
-            self.p = _Graph(_prepare_stages, args, None, self.equatorial)
-        fwdgrad_captures += 1
+        result = self.prepare_stages(*args)
+        with profiling.span(self.span + ".capture", self.slot):
+            self.p = _Graph(self.prepare_stages, args, None, self.equatorial)
+        _count(self.counter + "_captures")
         return result
 
     def finish(self, args):
         if self.f is not None:
-            with profiling.span("fwdgrad.replay", self.slot):
+            with profiling.span(self.span + ".replay", self.slot):
                 return self.f(args)
         result = self.finish_stages(*args)
-        with profiling.span("fwdgrad.capture", self.slot):
+        with profiling.span(self.span + ".capture", self.slot):
             self.f = _Graph(self.finish_stages, args, self.p.graph.pool(),
                             self.equatorial)
         return result
@@ -1085,8 +1186,8 @@ class _FwdgradGraphs:
 def _plain_inputs(tensors):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the fwd+bwd host stages replay CUDA graphs, which carry no "
-            "autograd history: pass tensors that do not require grad"
+            "the host stages replay CUDA graphs, which carry no autograd "
+            "history: pass tensors that do not require grad"
         )
 
 
@@ -1096,7 +1197,8 @@ class _Graph:
     signature, fixed at capture.  A call copies its args' card tensors
     in, replays, and returns fresh outputs: an output that is an input
     comes back as the caller's own tensor, every other one as a copy of
-    the graph's (which the next replay overwrites)."""
+    the graph's (which the next replay overwrites).  Capture and replay
+    run on the card of args' first card tensor, whichever is current."""
 
     def __init__(self, fn, args, pool, equatorial):
         leaves, spec = pytree.tree_flatten(args)
@@ -1107,8 +1209,10 @@ class _Graph:
             x = leaves[i]
             static[i] = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         self.static = [static[i] for i in self.idx]
+        self.device = self.static[0].device
         self.graph = torch.cuda.CUDAGraph()
-        with shading.equatorial_decided(equatorial), torch.cuda.graph(
+        with shading.equatorial_decided(equatorial), torch.cuda.device(
+                self.device), torch.cuda.graph(
                 self.graph, pool=pool, capture_error_mode="thread_local"):
             out = fn(*pytree.tree_unflatten(static, spec))
         outs, self.out_spec = pytree.tree_flatten(out)
@@ -1136,10 +1240,11 @@ class _Graph:
                     f"the graph was captured with {s.dtype} "
                     f"{tuple(s.shape)}")
         _plain_inputs(src)
-        torch._foreach_copy_(self.static, src)
-        self.graph.replay()
-        fresh = [torch.empty_like(t) for t in self.outs]
-        torch._foreach_copy_(fresh, self.outs)
+        with torch.cuda.device(self.device):
+            torch._foreach_copy_(self.static, src)
+            self.graph.replay()
+            fresh = [torch.empty_like(t) for t in self.outs]
+            torch._foreach_copy_(fresh, self.outs)
         return pytree.tree_unflatten(
             [leaves[v] if kind == "in" else fresh[v] if kind == "copy"
              else v for kind, v in self.plan], self.out_spec)

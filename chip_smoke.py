@@ -2321,14 +2321,21 @@ def check_served_session(dev, width=SERVED["width"], height=SERVED["height"],
                     answered)
         t_full8 = time.perf_counter() - t0
         t_cmd = time.perf_counter()
+        seq_before = rs.frame()[1]
         status, body = _http(port, "/cmd", b"el =25")
         answered.append(status)
         check(json.loads(body)["action"] == "changed", f"el =25: {body}")
         seq_cmd = rs.frame()[1]
-        _poll_state(port, lambda s: s["tier"] == "1/32"
-                    and s["seq"] > seq_cmd, answered)
-        restart = next(r for r in rs.frame_timings()
-                       if r["seq"] > seq_cmd and r["tier"] == "1/32")
+
+        def restarts():
+            # Published frames of the restarted ladder's first tier: a
+            # small frame can be replaced before a poll of /state sees it.
+            return [r for r in rs.frame_timings()
+                    if r["seq"] > seq_before and r["tier"] == "1/32"]
+
+        _poll_state(port, lambda s: s["seq"] > seq_before and restarts(),
+                    answered)
+        restart = restarts()[0]
         check(restart["seq"] <= seq_cmd + 2, f"the ladder restarted at seq "
               f"{restart['seq']}, {seq_cmd} when the command returned")
         status, body = _http(port, "/cmd", b"particles on")
