@@ -31,10 +31,10 @@ Tangent layouts: dscals (n_tan, 12) and dinps (n_tan, 16, n) carry one
 tangent direction per row (dL rides in plane 5 of dinp); the tangent
 planes come back as douts (n_tan, P, n).
 
-Host stages around K1 (trace_rays_kernel's: the null init and the
-depth order's gather, the shading) and around K2 (prepare_fwdgrad and
-its finish: the same with their per-tangent jvps): on the card each is a
-CUDA graph of its static signature (k1_signature, fwdgrad_signature),
+Host stages around K2 (prepare_fwdgrad and its finish: the null init
+and the depth order's gather with their per-tangent jvps, the shading
+with its jvps) and around K1 (the same stages with no tangents): on the
+card each is a CUDA graph of its static signature (stage_signature),
 captured at the signature's first call and replayed after, so the host
 does not launch their ops one by one; the kernel is launched eagerly
 between them.  On the CPU they run eagerly.
@@ -821,61 +821,16 @@ def trace_rays_kernel(origins, directions, scene: Scene, order=None) -> Hit:
     caller's ray order.  With shadow_softness > 0 the capture margin
     comes from the caller-order rays, outside the kernel.
 
-    On the card the stages before and after the planes pass run as CUDA
-    graphs of their static signature (k1_signature): the first call of a
-    signature runs them eagerly and captures each, later calls replay
-    them.  K1 is launched eagerly between them.  CPU calls, torch.func
-    transforms, inputs that require grad and torch.export run the stages
-    eagerly (_graphable)."""
-    args = (origins, directions, scene, order)
-    with profiling.span("kernel.prepare"):
-        planes = planes_args(scene)
-        graphs = _k1_graphs(args)
-        if graphs is None:
-            scal, inp, inv_order = _k1_prepare_stages(*args)
-        else:
-            scal, inp, inv_order = graphs.prepare(args)
-    out = _Planes.apply(scal, inp, *planes)
-    with profiling.span("kernel.finish"):
-        fin = (out, origins, directions, scene, inv_order)
-        if graphs is None:
-            return _k1_finish_stages(origins.shape[:-1], *fin)
-        return graphs.finish(fin)
-
-
-def _k1_prepare_stages(origins, directions, scene, order):
-    """trace_rays_kernel's stages before K1: (scal, inp, inv_order)."""
-    o = origins.to(torch.float32).reshape(-1, 3)
-    d = directions.to(torch.float32).reshape(-1, 3)
-    inv_order = None
-    if order is not None:
-        o, d = o[order], d[order]
-        inv_order = torch.argsort(order)
-    scal, inp = prepare(o, d, scene)
-    return scal, inp, inv_order
-
-
-def _k1_finish_stages(batch_shape, out, origins, directions, scene,
-                      inv_order):
-    """trace_rays_kernel's stages after K1 on its planes out: the Hit."""
-    o0 = origins.to(torch.float32).reshape(-1, 3)  # caller order
-    d0 = directions.to(torch.float32).reshape(-1, 3)
-    L = _L_of(scene, o0, d0) if _needs_L(scene) else None
-    margin = (trace.compute_capture_margin(o0, d0, scene)
-              if _soft(scene) else None)
-    return postprocess(out, o0.shape[0], batch_shape, scene, inv_order, L,
-                       margin)
+    The host stages around K1 are prepare_fwdgrad's with no tangents
+    (spans kernel.*, counters k1_*): on the card CUDA graphs of their
+    static signature, K1 launched eagerly between them."""
+    planes_in, finish = _host_stages("kernel", origins, directions, scene,
+                                     [], order)
+    return finish(_Planes.apply(*planes_in, *planes_args(scene)), [])[0]
 
 
 def _disk_on(scene: Scene) -> bool:
     return bool(scene.disk_enabled and scene.config.show_disk)
-
-
-def _L_of(scene: Scene, o, d):
-    """Conserved L of the rays (caller's order), recomputed from them."""
-    bh = scene.blackhole
-    return geodesic.init_null_rays_aug(o, coords.normalize(d), bh.mass, bh.a,
-                                       bh.charge)[2]
 
 
 def trace_rays_kernel_fwdgrad(origins, directions, scene: Scene, tangents,
@@ -907,28 +862,37 @@ def prepare_fwdgrad(origins, directions, scene: Scene, tangents, order=None):
     inputs, the tangents from torch.func.jvp of prepare, and finish(out,
     douts) -> (hit, [hit tangent per direction]), which shades the
     planes and takes each Hit tangent from torch.func.jvp of postprocess
-    given the tangent planes (dL and, under shadow_softness > 0, the
-    capture margin's tangent dm from those of the caller-order L and
-    margin along the ray tangents).
+    given the tangent planes (dL from dinps' plane 5 and, under
+    shadow_softness > 0, the capture margin's tangent dm from the
+    caller-order margin along the ray tangents).
 
     On the card both stages run as CUDA graphs of their static signature
-    (fwdgrad_signature): the first call of a signature runs them eagerly
-    and captures each, later calls replay them (_FwdgradGraphs).  Each
-    call returns tensors of its own, and finish uses its own call's
-    tensors.  The planes pass between them is launched eagerly."""
+    (stage_signature): the first call of a signature runs them eagerly
+    and captures each, later calls replay them (_GraphPair).  Each call
+    returns tensors of its own, and finish uses its own call's tensors.
+    The planes pass between them is launched eagerly.  CPU calls,
+    torch.func transforms, inputs that require grad and torch.export
+    run the stages eagerly (_graphable)."""
+    return _host_stages("fwdgrad", origins, directions, scene, tangents,
+                        order)
+
+
+def _host_stages(span, origins, directions, scene, tangents, order):
+    """(planes_in, finish) of prepare_fwdgrad, its spans and counters
+    those of span ("kernel": trace_rays_kernel's, K1's counters)."""
     _check_integrator(scene)
     batch_shape = origins.shape[:-1]
     args = (origins, directions, scene, list(tangents), order)
     graphs = None
-    with profiling.span("fwdgrad.prepare"):
-        if origins.device.type == "cpu":
-            planes_in, ctx = _prepare_stages(*args)
-        else:
-            graphs = _fwdgrad_graphs(args)
+    with profiling.span(span + ".prepare"):
+        if _graphable(args):
+            graphs = _graphs(span, args)
             planes_in, ctx = graphs.prepare(args)
+        else:
+            planes_in, ctx = _prepare_stages(*args)
 
     def finish(out, douts):
-        with profiling.span("fwdgrad.finish"):
+        with profiling.span(span + ".finish"):
             if graphs is None:
                 return _finish_stages(batch_shape, out, douts, scene, ctx)
             return graphs.finish((out, douts, scene, ctx))
@@ -947,8 +911,11 @@ def _pre(s, o_, d_):
 
 
 def _prepare_stages(origins, directions, scene, tangents, order):
-    """prepare_fwdgrad's stages: (planes_in, ctx), ctx = (o0, d0,
-    inv_order, ray_tangents), what _finish_stages reads of them."""
+    """The stages before the planes pass: (planes_in, ctx), planes_in
+    (scal, inp) without tangents, ctx what _finish_stages reads: the
+    caller-order rays under shadow_softness > 0, inv_order, the
+    (dscene, dorigins, ddirections) of each tangent, and L and each dL
+    in the caller's order where finalize reads L (prepare's plane 5)."""
     o, d = _rays(origins), _rays(directions)
     o0, d0 = o, d  # caller order
     inv_order = None
@@ -969,17 +936,27 @@ def _prepare_stages(origins, directions, scene, tangents, order):
             _, (dscal, dinp) = jvp(_pre, (scene, o, d), (ds, do, dd))
         dscals.append(dscal)
         dinps.append(dinp)
-    planes_in = (scal, _f32(torch.stack(dscals)), inp,
-                 _f32(torch.stack(dinps)))
-    return planes_in, (o0, d0, inv_order, ray_tangents)
+    planes_in = (scal, inp)
+    if tangents:
+        dinps = _f32(torch.stack(dinps))
+        planes_in = (scal, _f32(torch.stack(dscals)), inp, dinps)
+
+    def caller(plane):
+        return plane if inv_order is None else plane[inv_order]
+
+    L, dLs = None, []
+    if _needs_L(scene):
+        L, dLs = caller(inp[5]), [caller(dinp[5]) for dinp in dinps]
+    rays = (o0, d0) if _soft(scene) else None
+    return planes_in, (rays, inv_order, ray_tangents, L, dLs)
 
 
 def _finish_stages(batch_shape, out, douts, scene, ctx):
-    """finish's stages on the planes out, douts and ctx of
-    _prepare_stages: (hit, [hit tangent per direction])."""
-    o0, d0, inv_order, ray_tangents = ctx
-    n = o0.shape[0]
-    if not _needs_L(scene):
+    """The stages after the planes pass on its planes out, douts and ctx
+    of _prepare_stages: (hit, [hit tangent per direction])."""
+    rays, inv_order, ray_tangents, L, dLs = ctx
+    n = out.shape[-1]
+    if L is None:
         def post(out_, s):
             return postprocess(out_, n, batch_shape, s, inv_order)
 
@@ -989,29 +966,26 @@ def _finish_stages(batch_shape, out, douts, scene, ctx):
                 dhits.append(jvp(post, (out, scene), (dout, ds))[1])
         return post(out, scene), dhits
 
-    soft = _soft(scene)
-    if soft:
+    if rays is not None:
         # valid is a primal-only predicate, closed over.
-        m_arr, m_valid = trace.compute_capture_margin(o0, d0, scene)
+        m_arr, m_valid = trace.compute_capture_margin(*rays, scene)
     else:
-        m_arr = torch.zeros_like(o0[:, 0])
+        m_arr = torch.zeros_like(L)
 
     def margin_of(s, o_, d_):
         return trace.compute_capture_margin(o_, d_, s)[0]
 
     def post_L(out_, s, L_, m_):
-        margin = (m_, m_valid) if soft else None
+        margin = None if rays is None else (m_, m_valid)
         return postprocess(out_, n, batch_shape, s, inv_order, L_, margin)
 
-    L = _L_of(scene, o0, d0)
     dhits = []
-    for i, (dout, rtan) in enumerate(zip(douts, ray_tangents)):
+    for i, (dout, rtan, dL) in enumerate(zip(douts, ray_tangents, dLs)):
         with profiling.span("fwdgrad.jvp", i):
             # dL and dm ride the jvp so the Kerr-mode shading and the
             # analytic shadow boundary see their tangents.
-            _, dL = jvp(_L_of, (scene, o0, d0), rtan)
-            dm = (jvp(margin_of, (scene, o0, d0), rtan)[1] if soft
-                  else torch.zeros_like(m_arr))
+            dm = (torch.zeros_like(m_arr) if rays is None
+                  else jvp(margin_of, (scene, *rays), rtan)[1])
             dhits.append(jvp(post_L, (out, scene, L, m_arr),
                              (dout, rtan[0], dL, dm))[1])
     return post_L(out, scene, L, m_arr), dhits
@@ -1038,10 +1012,11 @@ _K1_GRAPHS = collections.OrderedDict()
 _slots = itertools.count()
 
 
-def fwdgrad_signature(origins, directions, scene: Scene, tangents,
-                      order=None):
-    """The static signature of prepare_fwdgrad's arguments: everything
-    its stages decide on the host, the key of their CUDA graphs.
+def stage_signature(origins, directions, scene: Scene, tangents,
+                    order=None):
+    """The static signature of the host stages' arguments (those of
+    prepare_fwdgrad; trace_rays_kernel's with tangents=[]): everything
+    the stages decide on the host, the key of their CUDA graphs.
 
     It holds the pytree structure of (origins, directions, scene,
     tangents, order), which carries the scene's static fields (and so
@@ -1052,19 +1027,8 @@ def fwdgrad_signature(origins, directions, scene: Scene, tangents,
     (a capture bakes such a value into the kernels' arguments); the
     value of every other leaf; and shading's equatorial test where the
     disk kinematics read it (on the card, a synchronisation)."""
-    return _signature((origins, directions, scene, list(tangents), order),
-                      scene)
-
-
-def k1_signature(origins, directions, scene: Scene, order=None):
-    """The static signature of trace_rays_kernel's arguments, the key of
-    its stages' CUDA graphs: fwdgrad_signature's rule over (origins,
-    directions, scene, order)."""
-    return _signature((origins, directions, scene, order), scene)
-
-
-def _signature(tree, scene):
-    leaves, spec = pytree.tree_flatten(tree)
+    leaves, spec = pytree.tree_flatten(
+        (origins, directions, scene, list(tangents), order))
     rays_elsewhere = leaves[0].device.type != "cpu"
 
     def key(x):
@@ -1080,34 +1044,20 @@ def _signature(tree, scene):
     return spec, tuple(key(x) for x in leaves), eq
 
 
-def _fwdgrad_graphs(args):
-    """The _GraphPair of prepare_fwdgrad's args' signature, made (and
-    the least recently used dropped past MAX_FWDGRAD_GRAPHS) at its first
-    call."""
-    key = fwdgrad_signature(*args)
-    return _lookup(_FWDGRAD_GRAPHS, MAX_FWDGRAD_GRAPHS, key, lambda slot: (
-        _GraphPair("fwdgrad", "fwdgrad", slot, _prepare_stages,
-                   functools.partial(_finish_stages, args[0].shape[:-1]),
-                   key[-1])))
-
-
-def _k1_graphs(args):
-    """The _GraphPair of trace_rays_kernel's args' signature, made (and
-    the least recently used dropped past MAX_K1_GRAPHS) at its first
-    call; None where the stages run eagerly."""
-    if not _graphable(args):
-        return None
-    key = k1_signature(*args)
-    return _lookup(_K1_GRAPHS, MAX_K1_GRAPHS, key, lambda slot: (
-        _GraphPair("kernel", "k1", slot, _k1_prepare_stages,
-                   functools.partial(_k1_finish_stages, args[0].shape[:-1]),
-                   key[-1])))
-
-
-def _lookup(cache, bound, key, make):
+def _graphs(span, args):
+    """The _GraphPair of the host stages' args' signature, made at its
+    first call; past the bound of span's table (MAX_K1_GRAPHS for
+    "kernel", MAX_FWDGRAD_GRAPHS for "fwdgrad") the least recently used
+    goes."""
+    counter, cache, bound = (
+        ("k1", _K1_GRAPHS, MAX_K1_GRAPHS) if span == "kernel"
+        else ("fwdgrad", _FWDGRAD_GRAPHS, MAX_FWDGRAD_GRAPHS))
+    key = stage_signature(*args)
     graphs = cache.get(key)
     if graphs is None:
-        graphs = cache[key] = make(next(_slots))
+        graphs = cache[key] = _GraphPair(
+            span, counter, next(_slots), _prepare_stages,
+            functools.partial(_finish_stages, args[0].shape[:-1]), key[-1])
         while len(cache) > bound:
             cache.popitem(last=False)
     else:
@@ -1116,7 +1066,7 @@ def _lookup(cache, bound, key, make):
 
 
 def _graphable(args):
-    """Whether trace_rays_kernel's stages may replay CUDA graphs: every
+    """Whether the host stages may replay CUDA graphs: every
     tensor of args a plain tensor on the rays' CUDA device, none of them
     requiring grad under grad mode (the eager path raises there), outside
     torch.func transforms (whose tangents a replay would drop) and
@@ -1183,27 +1133,20 @@ class _GraphPair:
         return result
 
 
-def _plain_inputs(tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the host stages replay CUDA graphs, which carry no autograd "
-            "history: pass tensors that do not require grad"
-        )
-
-
 class _Graph:
     """fn(*args) as one CUDA graph, captured over static copies of args'
-    tensors on the card; every other leaf of args is part of the
-    signature, fixed at capture.  A call copies its args' card tensors
-    in, replays, and returns fresh outputs: an output that is an input
-    comes back as the caller's own tensor, every other one as a copy of
-    the graph's (which the next replay overwrites).  Capture and replay
-    run on the card of args' first card tensor, whichever is current."""
+    tensors (on one card and requiring no grad: _graphable); every other
+    leaf of args is part of the signature, fixed at capture.  A call
+    copies its args' tensors in, replays, and returns fresh outputs: an
+    output that is an input comes back as the caller's own tensor, every
+    other one as a copy of the graph's (which the next replay
+    overwrites).  Capture and replay run on that card, whichever is
+    current."""
 
     def __init__(self, fn, args, pool, equatorial):
         leaves, spec = pytree.tree_flatten(args)
-        self.idx = [i for i, x in enumerate(leaves) if _on_card(x)]
-        _plain_inputs([leaves[i] for i in self.idx])
+        self.idx = [i for i, x in enumerate(leaves)
+                    if isinstance(x, torch.Tensor)]
         static = list(leaves)
         for i in self.idx:
             x = leaves[i]
@@ -1239,7 +1182,6 @@ class _Graph:
                     f"a {x.dtype} input of shape {tuple(x.shape)} where "
                     f"the graph was captured with {s.dtype} "
                     f"{tuple(s.shape)}")
-        _plain_inputs(src)
         with torch.cuda.device(self.device):
             torch._foreach_copy_(self.static, src)
             self.graph.replay()
@@ -1249,6 +1191,3 @@ class _Graph:
             [leaves[v] if kind == "in" else fresh[v] if kind == "copy"
              else v for kind, v in self.plan], self.out_spec)
 
-
-def _on_card(x):
-    return isinstance(x, torch.Tensor) and x.device.type != "cpu"

@@ -6,8 +6,9 @@ JAX package:
 
 * bh_trace_rays_batch on the five canonical rays against the JAX API's
   call through the JAX package's geodesic kernel (engine
-  "pallas_interpret", which its "auto" picks on a TPU; the port's
-  "auto" on a CPU context is the CUDA kernel's plain version) under the
+  "pallas_interpret", which its "auto" picks on a TPU, recorded once by
+  tests/jax_refs.py; the port's "auto" on a CPU context is the CUDA
+  kernel's plain version) under the
   RK4 contract: result codes and step counts equal, colour within 2e-4.
   Each ray's end point is held within END_RTOL of its length: rays 1, 3
   and 4 start on the polar axis and ray 2 (impact parameter 5.88 M)
@@ -45,6 +46,8 @@ from blackhole_tpu_torch.particles import orbits
 from blackhole_tpu_torch.particles import system as psys
 from blackhole_tpu_torch.viz import io as viz_io
 
+import jax_refs
+
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
 ORIGINS = np.array([r[0] for r in cli.TEST_RAYS])
@@ -74,12 +77,11 @@ def ctx():
 
 @pytest.fixture(scope="module")
 def five_rays():
-    """(port Hit, JAX Hit) of the five rays through the geodesic kernel."""
+    """(port Hit, JAX Hit) of the five rays through the geodesic kernel
+    (the JAX one recorded once: tests/jax_refs.py)."""
     got = api.bh_trace_rays_batch(_configure(api.bh_initialize(device="cpu")),
                                   ORIGINS, DIRS)
-    ref = japi.bh_trace_rays_batch(_jax_ctx(), ORIGINS, DIRS,
-                                   engine="pallas_interpret")
-    return got, ref
+    return got, jax_refs.hit(jax_refs.load("api_five_rays"))
 
 
 def test_version():

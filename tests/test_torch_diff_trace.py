@@ -11,19 +11,19 @@ the capture margin and the crossing-opacity planes carry gradient).
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from blackhole_tpu.geom import types as jtypes
-from blackhole_tpu.grad import diff_trace as jdiff
 from blackhole_tpu_torch.geom.types import (
     camera_from_reference, scene_from_reference,
 )
 from blackhole_tpu_torch.grad import diff_trace
 from blackhole_tpu_torch.render import image
+
+import jax_refs
 
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
@@ -60,18 +60,19 @@ def test_diff_forward_matches_xla_render():
     np.testing.assert_allclose(again.numpy(), diff.numpy(), atol=1e-12)
 
 
-@pytest.mark.parametrize("softness", [0.0, 0.3], ids=["hard", "soft"])
-def test_render_image_diff_grad_matches_jax(softness):
+SOFTNESS = {"hard": 0.0, "soft": 0.3}
+
+
+@pytest.mark.parametrize("softness", list(SOFTNESS.values()),
+                         ids=list(SOFTNESS))
+def test_render_image_diff_grad_matches_jax(softness, request):
     """d(mean image)/d(mass, spin) at 8x8, 150 steps, float64: .backward()
-    through render_image_diff against jax.grad of the JAX package's."""
-    jscene, jcamera, scene, camera = small_case(softness=softness)
-
-    def jloss(m, s):
-        bh = dataclasses.replace(jscene.blackhole, mass=m, spin=s)
-        return jnp.mean(jdiff.render_image_diff(
-            dataclasses.replace(jscene, blackhole=bh), jcamera, 8, 8))
-
-    want = jax.grad(jloss, (0, 1))(jnp.float64(1.0), jnp.float64(0.5))
+    through render_image_diff against jax.grad of the JAX package's
+    (recorded once: tests/jax_refs.py, case diff_trace_grad)."""
+    _, _, scene, camera = small_case(softness=softness)
+    rec = jax_refs.load("diff_trace_grad")
+    key = request.node.callspec.id
+    want = (rec[f"{key}.mass"], rec[f"{key}.spin"])
     m = torch.tensor(1.0, dtype=F64, requires_grad=True)
     s = torch.tensor(0.5, dtype=F64, requires_grad=True)
     bh = dataclasses.replace(scene.blackhole, mass=m, spin=s)

@@ -6,20 +6,19 @@ scene, camera and parameters (params_from_reference of the JAX
 pack_params).  Gradients within rtol 1e-6 of jax.grad.  Adam:
 optax.adam and torch.optim.Adam compute the same update with other
 roundings, so the parameters after a step agree within rtol 1e-12; a
-frozen parameter (mask 0) keeps its value bit for bit.
+frozen parameter (mask 0) keeps its value bit for bit.  The JAX
+package's gradients, target image and step are recorded once
+(tests/jax_refs.py).
 """
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import torch
 
 from blackhole_tpu.geom import types as jtypes
 from blackhole_tpu.grad import bucketed as jbucketed
-from blackhole_tpu.grad import diff_trace as jdiff
 from blackhole_tpu.grad import inverse as jinverse
 from blackhole_tpu.render import camera as jcam
 from blackhole_tpu_torch.geom.types import (
@@ -27,6 +26,8 @@ from blackhole_tpu_torch.geom.types import (
 )
 from blackhole_tpu_torch.grad import bucketed, diff_trace, inverse
 from blackhole_tpu_torch.render import camera as cam
+
+import jax_refs
 
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
@@ -64,17 +65,12 @@ def test_grad_over_chunks_matches_jax():
     o, d = jcam.generate_rays(jcamera, 16, 16)
     o, d = np.asarray(o).reshape(-1, 3), np.asarray(d).reshape(-1, 3)
 
-    def jscene_fn(p):
-        return dataclasses.replace(jscene, blackhole=dataclasses.replace(
-            jscene.blackhole, mass=p["mass"], spin=p["spin"]))
-
     def scene_fn(p):
         return dataclasses.replace(scene, blackhole=dataclasses.replace(
             scene.blackhole, mass=p["mass"], spin=p["spin"]))
 
-    want_loss, want = jbucketed.grad_over_chunks(
-        jscene_fn, {"mass": jnp.float64(1.0), "spin": jnp.float64(0.9)},
-        jnp.asarray(o), jnp.asarray(d), lambda c, i: jnp.sum(c), chunks=4)
+    want_loss, want = jax_refs.value_and_grad(
+        jax_refs.load("fit_grad_over_chunks"))
     ot, dt = torch.from_numpy(o), torch.from_numpy(d)
     cache = {}
     loss, grads = bucketed.grad_over_chunks(
@@ -99,16 +95,14 @@ def test_image_loss_and_train_step_match_jax():
     freeze mask of fit(optimize=("log_mass",)) against the JAX package's
     (optax.inject_hyperparams(adam), rate 2e-2), 8x8, 48 steps."""
     jscene, jcamera, scene, camera = small_case()
-    target_scene = dataclasses.replace(
-        jscene, blackhole=jtypes.BlackHole.create(1.0, 0.5,
-                                                  dtype=jnp.float64))
-    target = jdiff.render_image_diff(target_scene, jcamera, 8, 8)
     bad = dataclasses.replace(
         jscene, blackhole=jtypes.BlackHole.create(1.15, 0.5,
                                                   dtype=jnp.float64))
     jparams = jinverse.pack_params(bad, jcamera)
-    want_loss, want_grads = jax.value_and_grad(jinverse.image_loss)(
-        jparams, target, jscene, jcamera, 8, 8)
+    rec = jax_refs.load("fit_image_loss_and_train_step")
+    target = rec["target"]
+    want_loss, want_grads = jax_refs.value_and_grad(rec)
+    assert set(want_grads) == set(jparams)
 
     def port_params():
         return {k: v.requires_grad_(True) for k, v in params_from_reference(
@@ -126,11 +120,8 @@ def test_image_loss_and_train_step_match_jax():
                                    rtol=1e-6, atol=1e-14, err_msg=k)
 
     mask = {k: float(k == "log_mass") for k in jparams}
-    jopt = optax.inject_hyperparams(optax.adam)(learning_rate=2e-2)
-    jstep = jinverse.make_train_step(jopt, 8, 8)
-    jmask = {k: jnp.asarray(v, jnp.float64) for k, v in mask.items()}
-    jnew, _, jloss = jstep(jparams, jopt.init(jparams), target, jscene,
-                           jcamera, jmask)
+    jnew = {k: rec[f"new.{k}"] for k in jparams}
+    jloss = rec["step_loss"]
     params = port_params()
     before = {k: v.detach().clone() for k, v in params.items()}
     adam, step = inverse._fit_step(8, 8)

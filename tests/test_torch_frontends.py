@@ -48,6 +48,8 @@ from blackhole_tpu_torch.viz import animate, effects, native_io, server
 from blackhole_tpu_torch.viz import io as viz_io
 from blackhole_tpu_torch.viz import viewer
 
+import jax_refs
+
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
 CPU = dict(device="cpu")
@@ -348,27 +350,17 @@ VIEW_RUN = dict(width=W, height=H, max_frames=len(VIEW_SCRIPT),
 
 @pytest.fixture(scope="module")
 def jax_viewer_run():
-    """The JAX viewer run once for the module, with particles on:
-    (stats, its last frame as saved, its last frame before the particle
-    overlay).  The overlay is the last thing run does to a frame and
-    feeds nothing back (history and the ladder take the frame before
-    it), so the run without particles has the same tiers and resets,
-    and its last frame is the one before the overlay."""
-    saved, plain = {}, []
-    overlay = jeffects.particle_overlay
-
-    def keep(frame, *args, **kw):
-        plain.append(np.asarray(frame))
-        return overlay(frame, *args, **kw)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jio, "write_image", lambda path, img: saved.update(
-            last=np.asarray(img)))
-        mp.setattr(jeffects, "particle_overlay", keep)
-        stats = jviewer.run(jviewer.ViewerState(**VIEW_KW, particles=True),
-                            **VIEW_RUN)
-    assert len(plain) == stats["frames"]
-    return stats, saved["last"], plain[-1]
+    """The JAX viewer run once, with particles on (recorded:
+    tests/jax_refs.py, case frontends_viewer_run): (stats, its last
+    frame as saved, its last frame before the particle overlay).  The
+    overlay is the last thing run does to a frame and feeds nothing back
+    (history and the ladder take the frame before it), so the run
+    without particles has the same tiers and resets, and its last frame
+    is the one before the overlay."""
+    rec = jax_refs.load("frontends_viewer_run")
+    stats = {"frames": int(rec["frames"]), "tiers": rec["tiers"].tolist(),
+             "resets": int(rec["resets"])}
+    return stats, rec["last"], rec["plain_last"]
 
 
 @pytest.mark.parametrize("particles", [False, True], ids=["plain",

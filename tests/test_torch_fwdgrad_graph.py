@@ -372,9 +372,9 @@ SPLITS = {
 @pytest.mark.parametrize("static", sorted(SPLITS))
 def test_signature_splits_on_each_static(static):
     args = _signature_args()
-    base = trace_kernel.fwdgrad_signature(*args)
-    assert trace_kernel.fwdgrad_signature(*args) == base
-    assert trace_kernel.fwdgrad_signature(*SPLITS[static](*args)) != base
+    base = trace_kernel.stage_signature(*args)
+    assert trace_kernel.stage_signature(*args) == base
+    assert trace_kernel.stage_signature(*SPLITS[static](*args)) != base
 
 
 def test_signature_holds_over_draws_and_reads_cpu_leaves_elsewhere():
@@ -388,8 +388,8 @@ def test_signature_holds_over_draws_and_reads_cpu_leaves_elsewhere():
         # Rays on the CPU: one signature for both draws.  Rays elsewhere
         # (meta) with the scene on the CPU: a capture would bake the
         # scene's values, so they split.
-        sigs.append((trace_kernel.fwdgrad_signature(*args),
-                     trace_kernel.fwdgrad_signature(
+        sigs.append((trace_kernel.stage_signature(*args),
+                     trace_kernel.stage_signature(
                          o.to("meta"), d.to("meta"), *args[2:4],
                          args[4].to("meta"))))
     assert sigs[0][0] == sigs[1][0]

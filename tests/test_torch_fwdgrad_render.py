@@ -5,24 +5,23 @@ so ray tangents ride beside the scene tangents through one pass of the
 multi-tangent kernel (on CPU tensors its plain version).  8x8 rays of the
 parity camera at y = -30, 48 steps, Kerr a = 0.9, disk on, under the
 reference's contract: loss rtol 1e-5, gradients rtol 1e-3, atol 1e-8.
+The JAX package's render_value_and_grad (in interpret mode) is recorded
+once (tests/jax_refs.py, case fwdgrad_render).
 """
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import torch
 
-from blackhole_tpu.grad import fast_grad as jfast_grad
-from blackhole_tpu.render import camera as jcam
 from blackhole_tpu_torch.geom.types import (
     camera_from_reference, scene_from_reference,
 )
 from blackhole_tpu_torch.grad import fast_grad
 from blackhole_tpu_torch.render import camera as cam
 
-from test_torch_fwdgrad_slice import jax_loss, parity_case, torch_loss
+import jax_refs
+from test_torch_fwdgrad_slice import parity_case, torch_loss
 
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
@@ -31,17 +30,7 @@ P0 = {"mass": 1.0, "cam_y": -30.0}
 
 def test_render_value_and_grad_matches_jax():
     scene, camera, _, _ = parity_case()
-
-    def jsetup(p):
-        c = dataclasses.replace(
-            camera, position=camera.position.at[1].set(p["cam_y"]))
-        o, d = jcam.generate_rays(c, 8, 8)
-        s = dataclasses.replace(scene, blackhole=dataclasses.replace(
-            scene.blackhole, mass=p["mass"]))
-        return s, o.reshape(-1, 3), d.reshape(-1, 3)
-
-    vg = jfast_grad.render_value_and_grad(jax_loss, jsetup, interpret=True)
-    v2, g2 = jax.jit(vg)({k: jnp.float32(v) for k, v in P0.items()})
+    v2, g2 = jax_refs.value_and_grad(jax_refs.load("fwdgrad_render"))
 
     tscene = scene_from_reference(scene, device="cpu")
     tcamera = camera_from_reference(camera, device="cpu")

@@ -9,7 +9,7 @@ test_pallas_multi_tangent_value_and_grad): the first 64 rays of the 32x32
 parity camera, 48 steps, Kerr a = 0.9, disk on, params {mass, spin}.
 
 * grad.fast_grad.scene_value_and_grad against the JAX package's, jitted
-  in interpret mode, under the reference's own contract: loss rtol 1e-5,
+  in interpret mode (recorded once: tests/jax_refs.py), under the reference's own contract: loss rtol 1e-5,
   both gradients rtol 1e-3, atol 1e-8; and each ray's colour tangent
   against trace_rays_pallas_fwdgrad's.
 * The tangent of prepare (a torch.func.jvp of a function that itself
@@ -20,8 +20,7 @@ parity camera, 48 steps, Kerr a = 0.9, disk on, params {mass, spin}.
 * A depth-sorted trace_rays_kernel_fwdgrad equals the raster one bitwise.
 * Reverse mode through the kernel raises instead of returning zeros.
 The RKF45 case and render_value_and_grad are in
-test_torch_fwdgrad_rkf45.py and test_torch_fwdgrad_render.py (one JAX
-compile each, so the files spread over the test workers).
+test_torch_fwdgrad_rkf45.py and test_torch_fwdgrad_render.py.
 """
 
 import dataclasses
@@ -43,6 +42,8 @@ from blackhole_tpu_torch.geom.types import (
 from blackhole_tpu_torch.grad import fast_grad
 from blackhole_tpu_torch.render import camera as cam
 from blackhole_tpu_torch.render import image, trace_kernel
+
+import jax_refs
 
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
@@ -110,7 +111,8 @@ def assert_grad_contract(got, ref):
 
 def _jax_rk4(scene, o, d):
     """The JAX package's scene_value_and_grad and, in the same jitted
-    program, trace_rays_pallas_fwdgrad's hit and colour tangents."""
+    program, trace_rays_pallas_fwdgrad's hit and colour tangents
+    (recorded once: tests/jax_refs.py, case fwdgrad_slice_rk4)."""
     scene_fn = jax_scene_fn(scene)
     vg = jfast_grad.scene_value_and_grad(jax_loss, scene_fn, interpret=True)
 
@@ -128,7 +130,9 @@ def _jax_rk4(scene, o, d):
 @pytest.fixture(scope="module")
 def rk4():
     scene, camera, o, d = parity_case()
-    ref = _jax_rk4(scene, jnp.asarray(o), jnp.asarray(d))
+    rec = jax_refs.load("fwdgrad_slice_rk4")
+    ref = (jax_refs.value_and_grad(rec), rec["result"],
+           [rec[f"dcolor.{i}"] for i in range(len(P0))])
     tscene = scene_from_reference(scene, device="cpu")
     to, td = torch.from_numpy(o), torch.from_numpy(d)
     got = fast_grad.scene_value_and_grad(torch_loss, torch_scene_fn(tscene))(

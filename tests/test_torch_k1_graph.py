@@ -270,12 +270,17 @@ SPLITS = {
 }
 
 
+def _signature(o, d, scene, order=None):
+    """trace_rays_kernel's signature: the stages' with no tangents."""
+    return trace_kernel.stage_signature(o, d, scene, [], order)
+
+
 @pytest.mark.parametrize("static", sorted(SPLITS))
 def test_signature_splits_on_each_static(static):
     args = _signature_args()
-    base = trace_kernel.k1_signature(*args)
-    assert trace_kernel.k1_signature(*args) == base
-    assert trace_kernel.k1_signature(*SPLITS[static](*args)) != base
+    base = _signature(*args)
+    assert _signature(*args) == base
+    assert _signature(*SPLITS[static](*args)) != base
 
 
 def test_signature_holds_over_draws_and_reads_cpu_leaves_elsewhere():
@@ -287,9 +292,9 @@ def test_signature_holds_over_draws_and_reads_cpu_leaves_elsewhere():
         # Rays on the CPU: one signature for both draws.  Rays elsewhere
         # (meta) with the scene on the CPU: a capture would bake the
         # scene's values, so they split.
-        sigs.append((trace_kernel.k1_signature(o, d, scene, order),
-                     trace_kernel.k1_signature(o.to("meta"), d.to("meta"),
-                                               scene, order.to("meta"))))
+        sigs.append((_signature(o, d, scene, order),
+                     _signature(o.to("meta"), d.to("meta"), scene,
+                                order.to("meta"))))
     assert sigs[0][0] == sigs[1][0]
     assert sigs[0][1] != sigs[1][1]
 

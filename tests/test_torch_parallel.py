@@ -6,8 +6,8 @@ One world of 2 gloo ranks on the CPU (parallel.launch.run_world) runs
 every case of this file once (_world_cases); the tests compare its
 results with the JAX package's render_image_sharded and
 loss_and_grad_sharded on a 2-device mesh of conftest's virtual CPU
-devices (computed once per module) and with the port's own
-single-process calls:
+devices (recorded once: tests/jax_refs.py, case parallel_sharded) and
+with the port's own single-process calls:
 - the XLA engine's sharded render: atol 1e-5 against JAX's, bit for bit
   the port's render_image(engine="xla");
 - the kernel engine (K1's plain version on the CPU): atol 2e-5 against
@@ -49,6 +49,8 @@ from blackhole_tpu_torch.parallel import launch
 from blackhole_tpu_torch.parallel import mesh as pmesh
 from blackhole_tpu_torch.render import camera as cam
 from blackhole_tpu_torch.render import image, trace_kernel
+
+import jax_refs as recorded
 
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
@@ -216,9 +218,8 @@ def world():
     return ranks
 
 
-@pytest.fixture(scope="module")
-def jax_refs():
-    """JAX's sharded renders and gradients on a 2-device mesh, once."""
+def jax_sharded_refs():
+    """JAX's sharded renders and gradients on a 2-device mesh."""
     mesh = jmesh.make_mesh(2)
     js, jc = jscene_and_camera()
     refs = {"xla": np.asarray(jmesh.render_image_sharded(js, jc, 16, 16,
@@ -234,6 +235,17 @@ def jax_refs():
     refs["loss"] = float(loss)
     refs["grads"] = {k: np.asarray(v) for k, v in grads.items()}
     return refs
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """jax_sharded_refs(), recorded once (tests/jax_refs.py, case
+    parallel_sharded)."""
+    rec = recorded.load("parallel_sharded")
+    return {"xla": rec["xla"], "pallas": rec["pallas"],
+            "loss": float(rec["loss"]),
+            "grads": {k[len("grads."):]: v for k, v in rec.items()
+                      if k.startswith("grads.")}}
 
 
 def test_sharded_render_matches_jax_and_single_process(world, jax_refs):

@@ -1,7 +1,8 @@
 """The forward render slice of the PyTorch port against the JAX package.
 
 trace_rays_kernel (on CPU tensors: the kernel's plain version) against
-pallas_kernel.trace_rays_pallas in interpret mode, and render_image
+pallas_kernel.trace_rays_pallas in interpret mode (its outputs recorded
+once: tests/jax_refs.py, case slice_trace), and render_image
 against the JAX render_image, on the same float32 rays and scenes,
 under the parity contracts of the JAX package's compiled-kernel checks:
   RK4: result codes and steps equal, colour max < 2e-4 over agreeing
@@ -13,7 +14,6 @@ under the parity contracts of the JAX package's compiled-kernel checks:
 
 import dataclasses
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,11 +21,12 @@ import torch
 from blackhole_tpu.geom import types as jtypes
 from blackhole_tpu.render import camera as jcam
 from blackhole_tpu.render import image as jimage
-from blackhole_tpu.render import pallas_kernel
 from blackhole_tpu_torch.geom.types import (
     RayResult, camera_from_reference, scene_from_reference,
 )
 from blackhole_tpu_torch.render import image, trace_kernel
+
+import jax_refs
 
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
@@ -61,9 +62,14 @@ def _assert_contract(res, res_ref, color, color_ref, adaptive):
         assert dc.max() < 2e-4
 
 
-def _trace_both(scene, o, d):
-    ref = pallas_kernel.trace_rays_pallas(jnp.asarray(o), jnp.asarray(d),
-                                          scene, interpret=True)
+def _trace_both(scene, o, d, key):
+    """The port's trace and the JAX kernel's recorded one of the rays
+    SLICE_TRACES[key] names."""
+    args, kwargs, rays = jax_refs.SLICE_TRACES[key]
+    _, _, wo, wd = _case(*args, **kwargs)
+    wo, wd = jax_refs.slice_rays(wo, wd, rays)
+    assert np.array_equal(wo, o) and np.array_equal(wd, d)
+    ref = jax_refs.hit(jax_refs.load("slice_trace"), key + ".")
     got = trace_kernel.trace_rays_kernel(torch.from_numpy(o),
                                          torch.from_numpy(d),
                                          scene_from_reference(scene,
@@ -76,9 +82,10 @@ def _trace_both(scene, o, d):
     [(0.0, True, 0.1), (0.9, True, 0.1), (0.9, False, 0.1), (0.9, True, 0.5)],
     ids=["schw-disk", "kerr-disk", "kerr-no-disk", "kerr-disk-wide-step"],
 )
-def test_trace_rays_kernel_rk4_matches_pallas(spin, disk, time_step):
+def test_trace_rays_kernel_rk4_matches_pallas(spin, disk, time_step,
+                                             request):
     scene, _, o, d = _case(spin, disk, time_step=time_step)
-    got, ref = _trace_both(scene, o, d)
+    got, ref = _trace_both(scene, o, d, "rk4-" + request.node.callspec.id)
     res = got.result.numpy()
     assert res.dtype == np.int32 and got.color.shape == (1024, 3)
     _assert_contract(res, np.asarray(ref.result), got.color.numpy(),
@@ -108,16 +115,16 @@ def test_outward_rays_escape_like_pallas():
     that pass the hole first run out of path budget, MAX_DISTANCE.)"""
     scene, _, o, d = _case(0.9, True, max_steps=250, time_step=0.5)
     o, d = o[::16], -d[::16]
-    got, ref = _trace_both(scene, o, d)
+    got, ref = _trace_both(scene, o, d, "outward")
     assert set(np.asarray(ref.result).tolist()) == {RayResult.BACKGROUND}
     _assert_contract(got.result.numpy(), np.asarray(ref.result),
                      got.color.numpy(), np.asarray(ref.color), adaptive=False)
 
 
 @pytest.mark.parametrize("spin,disk", [(0.9, True), (0.0, False)])
-def test_trace_rays_kernel_rkf45_matches_pallas(spin, disk):
+def test_trace_rays_kernel_rkf45_matches_pallas(spin, disk, request):
     scene, _, o, d = _case(spin, disk, "rkf45", max_steps=192)
-    got, ref = _trace_both(scene, o, d)
+    got, ref = _trace_both(scene, o, d, "rkf45-" + request.node.callspec.id)
     _assert_contract(got.result.numpy(), np.asarray(ref.result),
                      got.color.numpy(), np.asarray(ref.color), adaptive=True)
 
@@ -126,7 +133,7 @@ def test_trace_rays_kernel_non_tile_batch():
     """777 rays (not a multiple of any tile) keep their batch shape."""
     scene, _, o, d = _case(0.9, True, max_steps=100)
     o, d = o[:777], d[:777]
-    got, ref = _trace_both(scene, o, d)
+    got, ref = _trace_both(scene, o, d, "non-tile")
     assert got.result.shape == (777,) and got.color.shape == (777, 3)
     _assert_contract(got.result.numpy(), np.asarray(ref.result),
                      got.color.numpy(), np.asarray(ref.color), adaptive=False)
@@ -179,8 +186,7 @@ def test_depth_sorted_trace_equals_raster():
 
 def test_predicted_depth_order_matches_jax():
     scene, camera, _, _ = _case(0.9, True, max_steps=150)
-    ref = np.asarray(jimage.predicted_depth_order(scene, camera, 32, 30,
-                                                  block=4, interpret=True))
+    ref = jax_refs.load("slice_depth_order")["order"]
     got = image.predicted_depth_order(
         scene_from_reference(scene, device="cpu"),
         camera_from_reference(camera, device="cpu"), 32, 30, block=4)

@@ -7,26 +7,27 @@
   (shadow_softness 0.3, disk on: every step is one pass of K2 with
   tracking; on CPU tensors its plain version), optimising log_mass and
   spin_raw from mass 1.03 against a target rendered at mass 1.0 at
-  learning rate 1e-2, against the JAX fit_forward in interpret mode.  Tolerance: each step's loss
-  within rtol 1e-4.  The first loss is a forward render (rtol 1e-5
+  learning rate 1e-2, against the JAX fit_forward in interpret mode (its
+  target image and losses recorded once: tests/jax_refs.py, case
+  soft_fit).  Tolerance: each step's loss within rtol 1e-4.  The first
+  loss is a forward render (rtol 1e-5
   between the two packages at this size); each later one follows an
   Adam step, whose first move is lr times the gradient's sign and whose
   next ones depend on the gradients' ratios, held by the gradient
   contract (rtol 1e-3), so the parameters and losses move together.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import torch
 
 from blackhole_tpu.geom import types as jtypes
 from blackhole_tpu.grad import inverse as jinverse
-from blackhole_tpu.render import camera as jcam
-from blackhole_tpu.render import pallas_kernel
 from blackhole_tpu_torch.geom.types import (
     camera_from_reference, scene_from_reference,
 )
 from blackhole_tpu_torch.grad import inverse
+
+import jax_refs
 
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
@@ -84,15 +85,10 @@ def test_pack_unpack_match_jax():
 
 
 def test_fit_forward_matches_jax():
-    target_scene, camera = _case(1.0)
-    o, d = jcam.generate_rays(camera, SIZE, SIZE)
-    target = np.asarray(pallas_kernel.trace_rays_pallas(
-        o.reshape(-1, 3), d.reshape(-1, 3), target_scene,
-        interpret=True).color, np.float32).reshape(SIZE, SIZE, 3)
+    _, camera = _case(1.0)
+    rec = jax_refs.load("soft_fit")
+    target, ref = rec["target"], rec["losses"]
     init_scene, _ = _case(1.03)
-    _, _, ref = jinverse.fit_forward(jnp.asarray(target), init_scene, camera,
-                                     SIZE, SIZE, steps=3, learning_rate=LR,
-                                     interpret=True)
     seen = []
     scene, _, got = inverse.fit_forward(
         torch.from_numpy(target), scene_from_reference(init_scene, device="cpu"),

@@ -6,7 +6,7 @@ plain version) and finalize composites the crossing opacity, the annulus
 window and the survival sigmoid of the analytic capture margin.
 
 * trace_rays_kernel against pallas_kernel.trace_rays_pallas in interpret
-  mode at the JAX package's soft-shadow engine-parity case
+  mode (recorded once: tests/jax_refs.py, case soft_slice_trace) at the JAX package's soft-shadow engine-parity case
   (tests/test_pallas.py, test_pallas_soft_shadow_matches_while_loop: the
   32x32 parity camera, a = 0.9, disk on, 400 steps, path budget 80,
   softness 0.25) under its contract: result codes equal, min_r rtol
@@ -20,19 +20,18 @@ window and the survival sigmoid of the analytic capture margin.
 
 import dataclasses
 
-import jax.numpy as jnp
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
 from blackhole_tpu.render import image as jimage
-from blackhole_tpu.render import pallas_kernel
 from blackhole_tpu_torch.geom.types import (
     RayResult, camera_from_reference, scene_from_reference,
 )
 from blackhole_tpu_torch.render import camera as cam
 from blackhole_tpu_torch.render import image, trace, trace_kernel
 
+import jax_refs
 from test_torch_fwdgrad_slice import P0, torch_params, torch_scene_fn
 from test_torch_slice import _case
 from test_torch_soft_grad import soft_case
@@ -50,8 +49,7 @@ def test_trace_rays_kernel_soft_matches_pallas():
     scene = _soft(scene, 0.25)
     tscene = scene_from_reference(scene, device="cpu")
     assert trace.track_crossing(tscene)
-    ref = pallas_kernel.trace_rays_pallas(jnp.asarray(o), jnp.asarray(d),
-                                          scene, interpret=True)
+    ref = jax_refs.hit(jax_refs.load("soft_slice_trace"))
     to, td = torch.from_numpy(o), torch.from_numpy(d)
     got = trace_kernel.trace_rays_kernel(to, td, tscene)
     np.testing.assert_array_equal(got.result.numpy(), np.asarray(ref.result))

@@ -37,6 +37,8 @@ from blackhole_tpu_torch.geom.types import (
 from blackhole_tpu_torch.integrate import sensitivity, steppers
 from blackhole_tpu_torch.render import geodesic, image, trace
 
+import jax_refs
+
 torch.set_num_threads(1)  # see tests/test_torch_step.py
 
 F32 = np.float32
@@ -271,7 +273,8 @@ def test_render_entry_points_match_jax():
     """render_image with chunks, render_hits, render_accumulated and
     predicted_depth_order_rays against the JAX package's (XLA engine;
     the prepass of the depth order through the kernel's plain version
-    against the JAX package's kernel in interpret mode)."""
+    against the JAX package's kernel in interpret mode, recorded once:
+    tests/jax_refs.py)."""
     scene, camera, o, d = _case(max_steps=60, time_step=0.5, size=16)
     tscene = scene_from_reference(scene, device="cpu")
     tcam = camera_from_reference(camera, device="cpu")
@@ -293,7 +296,5 @@ def test_render_entry_points_match_jax():
     order = image.predicted_depth_order_rays(torch.from_numpy(o),
                                              torch.from_numpy(d), tscene,
                                              stride=8)
-    jorder = jimage.predicted_depth_order_rays(jnp.asarray(o),
-                                               jnp.asarray(d), scene,
-                                               stride=8, interpret=True)
+    jorder = jax_refs.load("xla_engine_depth_order_rays")["order"]
     np.testing.assert_array_equal(order.numpy(), jorder)
