@@ -16,7 +16,11 @@ Threads:
   restarting whenever a parameter command lands.  Every frame launches
   K1 on the card (image.render_image for a tier, trace_rays_fast for an
   accumulation frame).  The frame goes to the host as uint8 and is
-  encoded by viz.io.encode_png (zlib, no PIL);
+  encoded by viz.io.encode_png_banded (zlib, no PIL), which the render
+  thread waits for;
+* ENCODER threads (the server's pool, one a band: viz.io.band_count)
+  deflate the frame's bands of rows; render_loop shuts the pool down
+  when it ends;
 * HTTP handler threads read the latest encoded PNG and push commands
   onto the state under the lock.
 
@@ -34,6 +38,7 @@ import contextlib
 import json
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
@@ -67,11 +72,16 @@ class RenderServer:
         # One record per published frame (the newest 4096): its seq,
         # tier, publish time (time.perf_counter), render_ms (to the
         # frame's uint8 on the host), the stages' ms (profiling.Stages:
-        # trace, accumulate, particles, readback), encode_ms, frame_ms,
+        # trace, accumulate, particles, readback), encode_ms,
+        # encode_bands (the bands its PNG was deflated in), frame_ms,
         # lock_ms (the render thread's waits for the lock in the frame)
         # and stale (a command changed the state while the frame was
         # rendered: it was superseded before it was shown).
         self._timings = collections.deque(maxlen=4096)
+        # The encoder's threads, one a band of viz_io.band_count's,
+        # started as the bands need them.
+        self._encoder = ThreadPoolExecutor(viz_io.MAX_BANDS,
+                                           thread_name_prefix="png-band")
 
     # ---- command side (HTTP handler threads) ----
     def apply(self, line: str) -> str:
@@ -140,12 +150,13 @@ class RenderServer:
         render_s = time.perf_counter() - t0
         stages.mark("readback")
         t1 = time.perf_counter()
+        bands = viz_io.band_count(u8.shape[0])
         with profiling.span("frame.encode"):
-            png = viz_io.encode_png(u8)
+            png = viz_io.encode_png_banded(u8, bands, self._encoder)
         t2 = time.perf_counter()
         record = {"tier": tier, "t": t2, "render_ms": render_s * 1e3,
                   **stages.ms(), "encode_ms": (t2 - t1) * 1e3,
-                  "frame_ms": (t2 - t0) * 1e3}
+                  "encode_bands": bands, "frame_ms": (t2 - t0) * 1e3}
         with self._held(waits):
             self._png = png
             self._seq += 1
@@ -161,7 +172,8 @@ class RenderServer:
 
         max_frames: stop after N published frames (tests); None = run
         until stop().  An exception ends the loop after it is stored in
-        self.error and the status."""
+        self.error and the status.  However the loop ends, the encoder's
+        threads end with it."""
         try:
             self._render(max_frames)
         except BaseException as exc:
@@ -169,6 +181,8 @@ class RenderServer:
                 self.error = exc
                 self._status = f"render error: {exc!r}"
             raise
+        finally:
+            self._encoder.shutdown()
 
     def _render(self, max_frames):
         frames = 0

@@ -23,8 +23,11 @@ Tolerances:
 """
 
 import json
+import threading
+import time
 import urllib.error
 import urllib.request
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -289,6 +292,86 @@ def test_encode_png_matches_jax_write_png(tmp_path):
     assert viz_io.encode_png(viz_io.to_uint8(img)) == viz_io.encode_png(img)
 
 
+def _frame_u8(h, w, seed=4):
+    """A smooth frame with +-1.5-level noise, as a rendered disk deflates:
+    long matches along the rows, short ones through the noise."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = 128 + 100 * np.sin(xx / 200.0) * np.cos(yy / 150.0)
+    noise = np.random.default_rng(seed).integers(-1, 2, (h, w, 3))
+    return np.clip(smooth[..., None] + noise, 0, 255).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def band_pool():
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(4) as pool:
+        yield pool
+
+
+# 1280x720, an upsampled 1/32 tier, encode_png's test image, one row, and
+# row counts that 2, 3 and 8 do not divide; bands <= rows.
+BANDED = [(h, w, b) for h, w in [(720, 1280), (704, 1280), (7, 9), (1, 9),
+                                 (101, 13), (67, 40)]
+          for b in (1, 2, 3, 8) if b <= h]
+
+
+@pytest.mark.parametrize("h,w,bands", BANDED,
+                         ids=[f"{h}x{w}-{b}" for h, w, b in BANDED])
+def test_encode_png_banded_decodes_to_its_uint8(h, w, bands, band_pool,
+                                                tmp_path):
+    """The banded PNG, decoded by viz.io, by the benchmark's reference
+    decoder and by zlib, is the uint8 image; a served frame's bands are
+    within 1% of one band's size (encode_png's)."""
+    from bhbench.reference import png as ref_png
+
+    img = _frame_u8(h, w)
+    body = viz_io.encode_png_banded(img, bands, band_pool)
+    (tmp_path / "f.png").write_bytes(body)
+    decoded = np.round(viz_io.read_image(str(tmp_path / "f.png")) * 255)
+    np.testing.assert_array_equal(decoded.astype(np.uint8), img)
+    np.testing.assert_array_equal(ref_png.decode_rgb8(body), img)
+    idat = body[41:-16]  # after the signature and IHDR, before the CRC
+    assert body[37:41] == b"IDAT" and body.count(b"IDAT") == 1
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    assert (rows[:, 0] == 0).all()
+    np.testing.assert_array_equal(rows[:, 1:].reshape(h, w, 3), img)
+    if w == 1280:  # a served frame; a tiny one pays each band's headers
+        assert len(body) <= 1.01 * len(viz_io.encode_png(img))
+
+
+def test_encode_png_banded_one_band_is_encode_png():
+    """encode_png is one band; its IDAT is the one zlib.compress(raw, 6)
+    of the filter-0 rows joined, as the JAX package writes it, at a
+    served frame's size too; a band count outside [1, rows] is
+    refused."""
+    for u8 in (_frame_u8(720, 1280), _frame_u8(40, 30)):
+        raw = b"".join(b"\x00" + row.tobytes() for row in u8)
+        body = viz_io.encode_png(u8)
+        assert body[41:-16] == zlib.compress(raw, 6)
+    for bad in (0, 41):  # no band, or a band of no rows
+        with pytest.raises(ValueError):
+            viz_io.encode_png_banded(u8, bad)
+
+
+def test_adler32_combine_matches_zlib():
+    rng = np.random.default_rng(5)
+    for n1, n2 in [(0, 0), (0, 7), (7, 0), (1, 1), (65521, 3)] + [
+            tuple(rng.integers(0, 200_000, 2)) for _ in range(30)]:
+        a, b = rng.bytes(int(n1)), rng.bytes(int(n2))
+        assert viz_io.adler32_combine(zlib.adler32(a), zlib.adler32(b),
+                                      len(b)) == zlib.adler32(a + b)
+
+
+@pytest.mark.parametrize("rows,cpus,bands", [
+    (720, 8, 8), (720, 64, viz_io.MAX_BANDS), (720, 3, 3),
+    (270, 8, 4),  # the CLI's serve
+    (16, 8, 1), (720, 1, 1)])
+def test_band_count_follows_rows_and_cpus(rows, cpus, bands, monkeypatch):
+    monkeypatch.setattr(viz_io, "usable_cpus", lambda: cpus)
+    assert viz_io.band_count(rows) == bands
+
+
 # --- viz.viewer ----------------------------------------------------------
 
 COMMANDS = [
@@ -515,6 +598,41 @@ def test_server_particles_overlay_renders(running_server):
     _wait(lambda: rs.frame()[1] > seq + 1)
     assert _post(port, "particles off") == "changed"
     assert rs.error is None
+
+
+def test_server_records_the_bands_of_each_frame(running_server):
+    """The 16-row frames of the fixture are deflated in one band."""
+    rs = running_server[0].render_server
+    records = rs.frame_timings()
+    assert records and all(t["encode_bands"] == 1 for t in records)
+
+
+def test_server_deflates_a_full_frame_in_bands(monkeypatch):
+    """A 1280x720 frame given to _publish on a host of 8 usable CPUs is
+    deflated in 8 bands on the server's encoder threads, and its PNG
+    decodes to the published uint8; once render_loop ends after stop(),
+    no encoder thread is alive."""
+    monkeypatch.setattr(viz_io, "usable_cpus", lambda: 8)
+    rs = server.RenderServer(viewer.ViewerState(steps=60, **CPU),
+                             width=1280, height=720)
+    frame = torch.tensor(_frame_u8(720, 1280) / 255.0, dtype=torch.float32)
+    seq = rs._publish(frame, "full+1", time.perf_counter(),
+                      server.profiling.Stages("cpu"), [], 0)
+    (record,) = rs.frame_timings()
+    assert record["seq"] == seq and record["encode_bands"] == 8
+    png = rs.frame()[0]
+    u8 = np.clip(frame.numpy() * 255.0, 0, 255).astype(np.uint8)
+    from bhbench.reference import png as ref_png
+
+    np.testing.assert_array_equal(ref_png.decode_rgb8(png), u8)
+    workers = list(rs._encoder._threads)
+    assert len(workers) > 1
+    rs.stop()
+    rt = threading.Thread(target=rs.render_loop)
+    rt.start()
+    rt.join(timeout=60)
+    assert not rt.is_alive() and rs.error is None
+    assert not any(t.is_alive() for t in workers)
 
 
 def test_server_unknown_path_404(running_server):
